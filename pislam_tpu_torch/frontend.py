@@ -162,7 +162,7 @@ def tables_from_numpy(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     }
 
 
-def make_extract_fn(cfg: PislamConfig, device) -> OrbExtractor:
+def make_extract_fn(cfg: PislamConfig, device="cuda") -> OrbExtractor:
     """extract(pyramid_stacked) -> Features for a config, on ``device``.
 
     ``pyramid_stacked`` is a (padded_height, stride) uint8 tensor on that

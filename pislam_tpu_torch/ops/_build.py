@@ -1,7 +1,8 @@
 """Build the Hopper kernels under ``csrc/`` into one shared library, at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one ``.so`` with a
-plain C interface, which ``ctypes`` loads. The library lands in
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per source,
+all started together, and links the objects into one ``.so`` with a plain C
+interface, which ``ctypes`` loads. The library lands in
 ``pislam_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads in
 milliseconds. The build takes seconds: no source includes PyTorch's headers.
@@ -25,11 +26,12 @@ BUILD_DIR = PKG / "_build"
 LIB_NAME = "libpislam_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: pointers and the stream as void*, sizes as int. Each
 # returns the cudaError_t of its launches (0 = cudaSuccess).
 SIGNATURES = {
@@ -38,6 +40,8 @@ SIGNATURES = {
     "pislam_gather_windows": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     "pislam_orb_select": (_P, _I, _P, _P, _P, _I, _P, _P, _P),
     "pislam_atan2_bins": (_P, _P, _I, _P, _P),
+    "pislam_match_reduce": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -70,14 +74,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (lib.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = lib.parent / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{out[-3000:]}")
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *(str(obj) for obj, _ in jobs)],
+                              capture_output=True, text=True, check=False)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-3000:]}")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (lib.parent / "nvcc.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

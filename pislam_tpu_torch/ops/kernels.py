@@ -42,6 +42,15 @@ K4 orb_select            csrc/orb_select.cu
     contraction), then bit i = p[idx1] > p[idx0], packed by warp ballot.
     GDIFF's column is onehot(idx1) - onehot(idx0), so its sign test is
     this compare.
+K5 match_reduce          csrc/match_reduce.cu
+    Replaces ``match_reduce`` / ``_match_reduce_kernel`` and its gated
+    variant (pallas_kernels.py:688, :667, :673). Bound: 2*K1*K2*256 int8
+    operations at 1,979 TOP/s if computed as the TPU did (1.1 us at
+    2048 x 2048); the popcount route does 8*K1*K2 popcounts at 16 per SM
+    per clock (8 us). Bytes are negligible. Design: packed words, XOR and
+    popcount, one thread per query row over shared-memory database tiles,
+    the database split across blocks and merged with the TPU's exact rule;
+    column first-argmins by atomicMin on (distance << 16 | row) keys.
 """
 
 from __future__ import annotations
@@ -291,21 +300,96 @@ def atan2_bins(m10, m01):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5: Hamming best / second / first-argmin per row, first-argmin per column
+# ---------------------------------------------------------------------------
+
+MAX_MATCH_ROWS = 1 << 16      # the column keys hold the row in 16 bits
+_MATCH_ROWS = 128             # csrc/match_reduce.cu kRows
+_MATCH_BLOCKS = 264           # two blocks per SM on a 132-SM card
+
+
+def match_reduce_plain(desc1, desc2, valid1, valid2, uv1=None, uv2=None,
+                       radius=None):
+    """(K1, W), (K2, W) int32 descriptor words + (K1,), (K2,) bool ->
+    (best (K1,), second (K1,), idx (K1,), col_argmin (K2,)) int32.
+
+    The dense reductions of the (K1, K2) Hamming matrix with invalid pairs
+    at ``matching.MAX_DIST``; with ``uv1`` (K1, 2), ``uv2`` (K2, 2) float32
+    and a ``radius``, pairs farther apart than it are invalid too.
+    """
+    # a call, not a reference: matching imports this module
+    from .. import matching
+    dist = matching.hamming_matrix(desc1, desc2, valid1, valid2)
+    if radius is not None:
+        dist = matching.gate(dist, uv1, uv2, radius)
+    idx, best, second = matching._best_two(dist)
+    return best, second, idx, torch.argmin(dist, dim=0).to(torch.int32)
+
+
+def _match_segments(k1: int, k2: int) -> tuple[int, int]:
+    """Database columns per block and the number of segments: enough blocks
+    to fill the card at frame size, at least 64 columns each."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    nseg = max(1, min(cdiv(_MATCH_BLOCKS, cdiv(k1, _MATCH_ROWS)), cdiv(k2, 64)))
+    seg = cdiv(cdiv(k2, nseg), 32) * 32
+    return seg, cdiv(k2, seg)
+
+
+@hopper_kernel(match_reduce_plain, "pislam_tpu_torch/csrc/match_reduce.cu",
+               "pislam_tpu/ops/pallas_kernels.py:688")
+def match_reduce(desc1, desc2, valid1, valid2, uv1=None, uv2=None, radius=None):
+    dev = desc1.device
+    _check(desc1, "desc1", torch.int32, 2, dev)
+    _check(desc2, "desc2", torch.int32, 2, dev)
+    _check(valid1, "valid1", torch.bool, 1, dev)
+    _check(valid2, "valid2", torch.bool, 1, dev)
+    (k1, words), k2 = desc1.shape, desc2.shape[0]
+    if desc2.shape[1] != words or not 1 <= words <= 8:
+        raise ValueError(f"descriptors {tuple(desc1.shape)}, {tuple(desc2.shape)}: "
+                         "need equal widths of 1..8 words")
+    if not 1 <= k1 <= MAX_MATCH_ROWS or k2 < 1:
+        raise ValueError(f"match_reduce: K1={k1} outside [1, {MAX_MATCH_ROWS}] or K2={k2}")
+    if valid1.numel() != k1 or valid2.numel() != k2:
+        raise ValueError("valid masks differ in length from the descriptors")
+    gated = radius is not None
+    if gated:
+        _check(uv1, "uv1", torch.float32, 2, dev)
+        _check(uv2, "uv2", torch.float32, 2, dev)
+        if uv1.shape != (k1, 2) or uv2.shape != (k2, 2):
+            raise ValueError("uv1/uv2 must be (K1, 2) and (K2, 2)")
+    seg, nseg = _match_segments(k1, k2)
+    best, second, idx = (torch.empty(k1, dtype=torch.int32, device=dev) for _ in range(3))
+    col = torch.empty(k2, dtype=torch.int32, device=dev)
+    part = torch.empty(nseg * k1 * 3, dtype=torch.int32, device=dev)
+    r2 = float(radius) * float(radius) if gated else 0.0
+    _call("pislam_match_reduce", dev, desc1.data_ptr(), desc2.data_ptr(), k1, k2, words,
+          valid1.view(torch.uint8).data_ptr(), valid2.view(torch.uint8).data_ptr(),
+          uv1.data_ptr() if gated else None, uv2.data_ptr() if gated else None,
+          r2, int(gated), seg, nseg, best.data_ptr(), second.data_ptr(),
+          idx.data_ptr(), col.data_ptr(), part.data_ptr())
+    return best, second, idx, col
+
+
 class KernelSet(NamedTuple):
-    """The four kernels of the extraction path."""
+    """The five kernels of the VO path: four of extraction, one of matching."""
 
     fused_frontend_codes: Callable
     topk_keys: Callable
     gather_windows_packed: Callable
     orb_select: Callable
+    match_reduce: Callable
 
 
 # The wrappers: plain on CPU tensors, Hopper kernels on CUDA tensors.
 HOPPER = KernelSet(fused_frontend_codes, topk_keys, gather_windows_packed,
-                   orb_select)
+                   orb_select, match_reduce)
 # The plain versions on any device: the reference the kernels are held to.
 PLAIN = KernelSet(fused_frontend_codes_plain, topk_keys_plain,
-                  gather_windows_packed_plain, orb_select_plain)
+                  gather_windows_packed_plain, orb_select_plain,
+                  match_reduce_plain)
 
 
 def reset_launch_counts():

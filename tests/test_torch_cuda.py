@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import pislam_tpu_torch
-from pislam_tpu_torch import FrontendConfig, PislamConfig, PyramidConfig
+from pislam_tpu_torch import (FrontendConfig, MatcherConfig, PislamConfig, PyramidConfig,
+                              VOConfig)
 from pislam_tpu_torch.ops import brief, kernels, orientation
 from pislam_tpu_torch.ops.pyramid import build_pyramid
 
@@ -102,6 +103,63 @@ def test_k4_atan2_sweep(dev):
     _same(kernels.atan2_bins(m10, m01), orientation.atan2_bins(m10.cpu(), m01.cpu()))
 
 
+def _match_case(k1, k2, seed, gated):
+    """Words using all 32 bits, duplicates within and across the kernel's
+    segments, invalid rows and columns; for the gate inf and 1e6 points."""
+    rng = np.random.default_rng(seed)
+    d1 = rng.integers(0, 2**32, (k1, 8), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (k2, 8), dtype=np.uint32)
+    if k1 >= 3 and k2 >= 7:
+        for j in (3, k2 // 2, k2 - 1):               # ties of query row 1
+            d2[j] = d1[1]
+        d2[k2 // 3] = d1[2] ^ np.uint32(1)
+        d2[k2 - 2] = d1[2]                           # a later, better column
+        d1[k1 - 1] = d1[1]                           # duplicate query rows
+    v1, v2 = rng.random(k1) < 0.9, rng.random(k2) < 0.9
+    args = [t(d1.view(np.int32)), t(d2.view(np.int32)), t(v1), t(v2)]
+    if gated:
+        uv1 = rng.uniform(-0.1, 0.1, (k1, 2)).astype(np.float32)
+        uv2 = rng.uniform(-0.1, 0.1, (k2, 2)).astype(np.float32)
+        uv2[5], uv2[6], uv1[7] = 1e6, np.inf, np.inf
+        uv1[0] = uv2[0] + [0.06, 0.0]                # on the radius
+        args += [t(uv1), t(uv2), 0.06]
+    return args
+
+
+@pytest.mark.parametrize("k1,k2,gated", [(512, 512, False), (333, 2048, False),
+                                         (2048, 16384, False), (512, 16384, True),
+                                         (1, 1, False), (100, 7, True)])
+def test_k5(dev, k1, k2, gated):
+    args = _match_case(k1, k2, k1 + k2, gated)
+    on_card = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+    before = kernels.match_reduce.launches
+    _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*on_card))
+    _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*args))
+    assert kernels.match_reduce.launches == before + 2
+
+
+def test_vo_on_card_matches_cpu(dev):
+    cfg = PislamConfig(
+        pyramid=PyramidConfig(base_width=384, base_height=256, num_levels=4),
+        frontend=FrontendConfig(fast_threshold=14, harris_threshold=1 << 9,
+                                border=16, max_keypoints=512),
+        matcher=MatcherConfig(max_distance=64, ratio=0.85),
+        vo=VOConfig(ransac_iters=256, inlier_threshold=2e-3, min_inliers=20))
+    d = np.load(DATA / "eval_seq.npz")
+    intr = [float(d[k]) for k in ("fx", "fy", "cx", "cy")]
+    frames = d["frames"][:5]
+    kernels.reset_launch_counts()
+    card = pislam_tpu_torch.make_vo_scan(cfg, *intr, device=dev)(
+        frames, torch.Generator(device=dev).manual_seed(0))
+    assert kernels.match_reduce.launches == 4
+    cpu = pislam_tpu_torch.make_vo_scan(cfg, *intr, device="cpu")(
+        frames, torch.Generator().manual_seed(0))
+    assert torch.equal(card["accepted"].cpu(), cpu["accepted"]) and bool(cpu["accepted"].all())
+    assert (card["num_inliers"].cpu() - cpu["num_inliers"]).abs().max() <= 2
+    for k in ("R", "t"):
+        assert (card[k].cpu() - cpu[k]).abs().max() <= 1e-4
+
+
 def test_frontend_on_card_matches_cpu(dev):
     cfg = PislamConfig(
         pyramid=PyramidConfig(base_width=384, base_height=256, num_levels=4),
@@ -111,5 +169,8 @@ def test_frontend_on_card_matches_cpu(dev):
     pyr = build_pyramid(frame, cfg.pyramid)
     kernels.reset_launch_counts()
     on_card = pislam_tpu_torch.make_extract_fn(cfg, device=dev)(pyr.to(dev))
-    assert all(n == 1 for n in kernels.launch_counts().values())
+    # one launch of each extraction kernel; K5 belongs to matching
+    assert kernels.launch_counts() == {"fused_frontend_codes": 1, "topk_keys": 1,
+                                       "gather_windows_packed": 1, "orb_select": 1,
+                                       "match_reduce": 0}
     _same(tuple(on_card), tuple(pislam_tpu_torch.make_extract_fn(cfg, device="cpu")(pyr)))

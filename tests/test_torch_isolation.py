@@ -62,6 +62,8 @@ WRAPPER_ARGS = {
     "orb_select": lambda: (_meta((8, 1024), torch.int8), _meta((30, 256), torch.int16),
                            _meta((30, 256), torch.int16), _meta((1024, 2), torch.int8), 8),
     "atan2_bins": lambda: (_meta((8,), torch.int32), _meta((8,), torch.int32)),
+    "match_reduce": lambda: (_meta((40, 8), torch.int32), _meta((50, 8), torch.int32),
+                             _meta((40,), torch.bool), _meta((50,), torch.bool)),
 }
 
 

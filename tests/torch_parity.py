@@ -6,6 +6,7 @@ compared as int64 (the port's representation of a u32), descriptor words
 as uint32.
 """
 
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -38,6 +39,16 @@ def eval_config():
         pyramid=PyramidConfig(base_width=384, base_height=256, num_levels=4),
         frontend=FrontendConfig(fast_threshold=14, harris_threshold=1 << 9,
                                 border=16, max_keypoints=512))
+
+
+def vo_config(ransac_iters=128, **vo):
+    """tools/eval_ate.py's slam_config as VO reads it (frontend, matcher,
+    vo), with tests/test_vo_scan.py's 128 RANSAC iterations by default."""
+    from pislam_tpu.config import MatcherConfig, VOConfig
+    return dataclasses.replace(
+        eval_config(), matcher=MatcherConfig(max_distance=64, ratio=0.85),
+        vo=VOConfig(ransac_iters=ransac_iters, inlier_threshold=2e-3, min_inliers=20,
+                    **vo))
 
 
 def image(h, w, seed=0):
