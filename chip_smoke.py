@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ORB extraction and visual odometry on one CUDA
-card and check them.
+"""Drive the PyTorch port's ORB extraction, visual odometry and keyframe SLAM
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -8,31 +8,49 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: nvcc compiles the five Hopper kernels from pislam_tpu_torch/csrc,
+2. build: nvcc compiles the eight Hopper kernels from pislam_tpu_torch/csrc,
    one process per source, all at once.
-3. kernels: K1-K4 and K4's atan2 bins against their plain PyTorch versions
-   on the card, bit-exact, at the extraction shapes (VGA 8-level pyramid with
-   2048 keypoints, and the eval config's 4-level 384x256 pyramid with 512),
-   including invalid and edge keypoints and an atan2 sweep; K5 (ungated and
-   gated) bit-exact at (512, 512) from eval features, (2048, 2048) from VGA
-   features, (2048, 16384) tiled as tools/ab_match.py tiles it, and gated
-   with radius 0.06 at (512, 16384), each with invalid rows and columns,
-   duplicated descriptors and again with a K1 of no block multiple.
+3. kernels: K1-K4, K4's atan2 bins, K6, K4d and K3c against their plain
+   PyTorch versions on the card, bit-exact, at the extraction shapes (VGA
+   8-level pyramid with 2048 keypoints, and the eval config's 4-level
+   384x256 pyramid with 512), including invalid and edge keypoints and an
+   atan2 sweep; K6 on the unfused frontend's scored grid (its top-k gives
+   K1's keypoints), K4d at K and 2048 keypoints (also against K4's bits),
+   K3c on 2048 keypoints' strip rows (also against K3's bytes); K5
+   (ungated and gated) bit-exact at (512, 512) from eval features,
+   (2048, 2048) from VGA features, (2048, 16384) tiled as tools/ab_match.py
+   tiles it, and gated with radius 0.06 at (512, 16384), each with invalid
+   rows and columns, duplicated descriptors and again with a K1 of no block
+   multiple.
 4. extraction path: 48 frames of data/eval_seq.npz at the eval config and 8
    seeded VGA frames at the default config, each frame -> build_pyramid ->
    make_extract_fn(cfg, "cuda"), compared frame by frame with the plain path
    on the card, the first 4 of each also with the plain path on the CPU;
-   K1-K4's launch counts must reach the number of frames.
+   K1-K4's launch counts must reach the number of frames. Then, each a path
+   of its own, the same frames with fused_upstream=False (K6) and with
+   brief_variant="dense" (K4d), bit-exact against the default path, and
+   with odd-border bucketing (K6) against its own plain path.
 5. VO path: make_vo_scan(vo_config(), device="cuda") over the four
    data/eval_seq*.npz sequences (416 frames); each sequence's ATE must lie
    within 0.005 of the JAX package's (EVAL_r05.json vo_ate_rmse); every
    kernel's launch count must reach the frames (K5: the transitions); on
    eval_seq the plain path on the card gives the same matches and decisions
    frame by frame, and the CPU agrees on the first 4 transitions.
-6. times from CUDA events (median of 30 after warm-up) and host clocks
-   ending in a synchronize, a torch.profiler window over 20 VO frames, and
-   which VO operations make the host wait; the card's name and power limit
-   on every line.
+6. SLAM path, the main path: KeyframeSLAM(slam_config(), device="cuda") over
+   the four sequences at full length, then close_loop, with exact launch
+   counts; the CPU replays every frame and each closure from the card's
+   state with the card's RANSAC draws (same decisions, counters, loop and
+   branch; poses within 1e-3), every BA and pose graph the card solved is
+   audited from its inputs against float32 and float64 on the CPU; no frame
+   lost, eval_seq4 inserts more than 64 keyframes and closes against a
+   surviving one. The ATEs are printed beside the JAX package's range over
+   seeds 7/0/1/2 (SLAM_REFERENCE), which holds nothing. Then SLAM on
+   eval_seq with fused_upstream=False: the same Features every frame and
+   the same keyframes, K6 once per frame.
+7. times from CUDA events (median of 30 after warm-up) and host clocks
+   ending in a synchronize, SLAM stage times, torch.profiler windows over
+   20 VO and 20 SLAM frames, and which operations make the host wait; the
+   card's name and power limit on every line.
 
 The line before the last is {"kernels": [...]}, the last line is
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
@@ -40,6 +58,7 @@ The line before the last is {"kernels": [...]}, the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -77,7 +96,43 @@ SCALAR_OPS_S = 67e12
 # ring loads and 32 compares and the arc test, Harris's gradients, products,
 # 6x6 window sums and score, the 3x3 NMS, the encode and the 2x2 max.
 K1_OPS_PER_PIXEL = 100
-# the __global__ functions of pislam_tpu_torch/csrc, as the profiler names them
+# the kernels of the default (fused, sorted BRIEF) frontend's VO and SLAM paths
+FUSED_PATH_KERNELS = ("fused_frontend_codes", "topk_keys", "gather_windows_packed",
+                      "orb_select", "match_reduce")
+# The JAX package's KeyframeSLAM on the CPU at slam_config over each committed
+# sequence, seeds 7, 0, 1 and 2 of its PRNG key (slam_reference_range.py): per
+# ATE (per-frame SLAM, keyframes before and after close_loop) the lowest and
+# highest value, rounded outward to 4 decimals; the seed-7 values; in how many
+# of the 4 runs the closure took the pose-graph branch. SLAM's keyframe
+# decisions and closure branch turn on the draws and on float rounding
+# (tests/test_torch_slam.py), so the port's ATEs are printed beside this range
+# as a sanity check; what holds the card to the port is the step-by-step
+# comparison with the CPU (slam_path).
+SLAM_REFERENCE = {
+    "eval_seq": {"slam_ate": (0.1431, 0.3092), "kf_ate_pre": (0.1014, 0.2547),
+                 "kf_ate_post": (0.1027, 0.2300), "seed7": (0.1431, 0.1015, 0.1027),
+                 "used_graph": 0},
+    "eval_seq2": {"slam_ate": (0.3238, 0.5769), "kf_ate_pre": (0.3484, 0.5411),
+                  "kf_ate_post": (0.3032, 0.5722), "seed7": (0.3511, 0.3520, 0.3509),
+                  "used_graph": 1},
+    "eval_seq3": {"slam_ate": (0.1090, 0.1420), "kf_ate_pre": (0.0976, 0.1304),
+                  "kf_ate_post": (0.0675, 0.0938), "seed7": (0.1419, 0.1304, 0.0938),
+                  "used_graph": 0},
+    "eval_seq4": {"slam_ate": (0.3576, 0.3662), "kf_ate_pre": (0.3393, 0.3923),
+                  "kf_ate_post": (0.3771, 0.3921), "seed7": (0.3583, 0.3393, 0.3881),
+                  "used_graph": 3},
+}
+# card against CPU, step by step: each frame's pose and the pose graph's
+# (tests/test_torch_slam.py's pose tolerance)
+SLAM_POSE_TOL = 1e-3
+# BA's first LM step on the card against float64 on the CPU: the card's
+# relative error within this factor of the CPU's float32 error, plus a floor
+# of a few float32 ulps; and the dense solve's normwise backward error
+BA_ERR_FACTOR = 10.0
+BA_ERR_FLOOR = 1e-6
+BA_BACKWARD_TOL = 1e-5
+SLAM_PROFILE_FRAMES = 20
+# the __global__ functions of K1-K5 (the VO path's), as the profiler names them
 HOPPER_KERNEL_FUNCTIONS = (
     "fused_frontend_kernel", "histogram_kernel", "select_digit_kernel", "compact_kernel",
     "sort_desc_kernel", "gather_windows_kernel", "orb_select_kernel", "match_rows_kernel",
@@ -97,12 +152,21 @@ def vo_config():
     """tools/eval_ate.py's slam_config as VO reads it: the eval frontend,
     matcher ratio 0.85 / max distance 64 / cross-check, 256 RANSAC
     iterations at Sampson 2e-3, at least 20 inliers."""
-    import dataclasses
-
     from pislam_tpu_torch import MatcherConfig, VOConfig
     return dataclasses.replace(
         eval_config(), matcher=MatcherConfig(max_distance=64, ratio=0.85),
         vo=VOConfig(ransac_iters=256, inlier_threshold=2e-3, min_inliers=20))
+
+
+def slam_config():
+    """tools/eval_ate.py's slam_config: vo_config() plus windowed BA (6
+    cameras, 1024 points, 4096 observations, 4 iterations) and the 0.06
+    projection gate; MapConfig's defaults otherwise (64 keyframe slots, 8192
+    landmarks, 16384 observations)."""
+    from pislam_tpu_torch import BAConfig, MapConfig
+    return dataclasses.replace(
+        vo_config(), ba=BAConfig(window=6, max_points=1024, max_obs=4096, gn_iters=4),
+        map=MapConfig(gate_radius=0.06))
 
 
 def card_label() -> str:
@@ -184,7 +248,7 @@ def kernel_phase(dev, pyramids, cfgs):
     from pislam_tpu_torch.ops import brief, kernels, nms, orientation
     from pislam_tpu_torch.utils import codec
 
-    errs = {k.__name__: 0 for k in kernels.HOPPER}
+    errs = {k.__name__: 0 for k in kernels.COUNTED}
     rows, feats = {}, {}
     for label, cfg in cfgs.items():
         pyr = pyramids[label]
@@ -233,12 +297,44 @@ def kernel_phase(dev, pyramids, cfgs):
             errs["orb_select"] = max(errs["orb_select"],
                                      require_equal(f"K4 {label} angles", ang, pang),
                                      require_equal(f"K4 {label} words={words}", desc, pdesc))
+        flat = flat[:k]
+
+        # K6 on the unfused frontend's scored grid of the same pyramid
+        scored = unfused_scored(pyr, extractor.level_mask, fc)
+        red = kernels.reduce_codes_4x(scored)
+        errs["reduce_codes_4x"] = max(errs["reduce_codes_4x"], require_equal(
+            f"K6 {label}", red, kernels.reduce_codes_4x_plain(scored)))
+        if not torch.equal(nms.select_topk_codes(red, k)[0], feats[label].codes):
+            raise AssertionError(f"K6 {label}: its top-k differs from K1's keypoints")
+        # K4d on the path's windows, and at K = 2048 at the eval shape too
+        gm = brief.dense_weights(dev)
+        for name, f in ((label, flat), (f"{label} x4", flat.repeat(4, 1)[:2048])):
+            ang, bits = kernels.orb_select_bits(f, gm)
+            pang, pbits = kernels.orb_select_bits_plain(f, gm)
+            k4ang, k4desc = kernels.orb_select(f, *tables, 8)
+            errs["orb_select_bits"] = max(errs["orb_select_bits"],
+                                          require_equal(f"K4d {name} bins", ang, pang),
+                                          require_equal(f"K4d {name} bits", bits, pbits))
+            require_equal(f"K4d {name} vs K4 bins", ang, k4ang.to(torch.int32))
+            require_equal(f"K4d {name} vs K4 bits", brief._pack_bits_u8(bits, 8), k4desc)
+        # K3c on the keypoints' strip rows, against K3's bytes
+        kx = torch.cat([xs, ex]).repeat(2048 // k + 1)[:2048]
+        ky = torch.cat([ys, ey]).repeat(2048 // k + 1)[:2048]
+        kv = torch.cat([valid, ev]).repeat(2048 // k + 1)[:2048]
+        args3c = kernels.strip_window_rows(pyr, kx, ky, kv)
+        words = kernels.realign_windows(*args3c)
+        errs["realign_windows"] = max(errs["realign_windows"], require_equal(
+            f"K3c {label}", words, kernels.realign_windows_plain(*args3c)))
+        win = (words.reshape(-1, 256).view(torch.uint8) ^ 0x80).view(torch.int8)
+        require_equal(f"K3c {label} vs K3", win.reshape(-1, 1024),
+                      kernels.gather_windows_packed(pyr, kx, ky, kv))
 
         # times at the main path's shapes (the keypoints alone, no extras)
         args3 = (pyr, xs, ys, valid)
-        flat = flat[:k]
         args4 = (flat, *tables, fc.words)
+        args3c = kernels.strip_window_rows(pyr, xs, ys, valid)
         n_px = pyr.numel()
+        bins = torch.unique(kernels.orb_select_bits(flat, gm)[0]).numel()
         rows[label] = {
             "fused_frontend_codes": (args1, None, bound_ms(
                 2 * n_px + grid.numel() * 4, K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S)),
@@ -249,6 +345,15 @@ def kernel_phase(dev, pyramids, cfgs):
             "orb_select": (args4, None, bound_ms(
                 flat.numel() + sum(tb.numel() * tb.element_size() for tb in tables)
                 + k * (1 + 4 * fc.words), k * (2 * 1024 * 2 + 256), SCALAR_OPS_S)),
+            "reduce_codes_4x": ((scored,), None, bound_ms(
+                scored.numel() + red.numel() * 4, 0, SCALAR_OPS_S)),
+            # the slabs of the bins this input selects and the moment columns
+            "orb_select_bits": ((flat, gm), None, bound_ms(
+                flat.numel() + bins * 1024 * 256 + 1024 * 2 + k * (4 + 256),
+                2 * k * 1024 * (256 + 2), INT8_OPS_S)),
+            # each keypoint's 9 rows x 32 words, psi and phi; 1 KB out
+            "realign_windows": (args3c, None, bound_ms(
+                k * (9 * 32 * 4 + 8 + 1024), 0, SCALAR_OPS_S)),
         }
 
     m10, m01 = (torch.as_tensor(m, device=dev) for m in orientation.sweep_moments())
@@ -256,9 +361,19 @@ def kernel_phase(dev, pyramids, cfgs):
     require_equal("K4 atan2 sweep (card plain)", bins, orientation.atan2_bins(m10, m01))
     require_equal("K4 atan2 sweep (CPU plain)", bins.cpu(),
                   orientation.atan2_bins(m10.cpu(), m01.cpu()))
-    print(f"phase kernels: ok, K1-K4 bit-exact (tolerance 0) on VGA and eval shapes; "
-          f"atan2 sweep of {m10.numel()} moment pairs bit-exact")
+    print(f"phase kernels: ok, K1-K4, K6, K4d (K and 2048 keypoints, also against K4) and "
+          f"K3c (2048 keypoints, also against K3's bytes) bit-exact (tolerance 0) on VGA "
+          f"and eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
+
+
+def unfused_scored(pyr, level_mask, fc):
+    """The unfused frontend's scored NMS survivors (frontend._extract_impl,
+    no bucketing): plain FAST, Harris and NMS on the card."""
+    from pislam_tpu_torch.ops import fast, harris, nms
+    corner = fast.fast_detect(pyr, fc.fast_threshold)
+    score = harris.harris_score(pyr, fc.harris_threshold, mask=corner & level_mask)
+    return torch.where(nms.nms(score), score, torch.zeros_like(score)).contiguous()
 
 
 def _tile_database(d1, v1, k2, rng):
@@ -404,6 +519,49 @@ def extraction_path(dev, frames, cfgs):
     return extract, results
 
 
+def extraction_variants(dev, cfgs, results):
+    """The frontend's other configurations on the same frames, each a path of
+    its own (counts set to 0 before it, read after): unfused (plain
+    FAST/Harris/NMS, then K6) and dense BRIEF (K4d), each bit-exact against
+    the default path's Features; bucketing with an odd border (unfused, so
+    K6) against its own plain path. Returns the launch counts per variant."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.ops import kernels
+
+    variants = {
+        "unfused": (dict(fused_upstream=False), "reduce_codes_4x", "fused_frontend_codes"),
+        "dense BRIEF": (dict(brief_variant="dense"), "orb_select_bits", "orb_select"),
+        "odd-border bucketing": (dict(log_bucket_size=4, bucket_limit=3, border=17),
+                                 "reduce_codes_4x", "fused_frontend_codes"),
+    }
+    out = {}
+    for vname, (change, runs, idle) in variants.items():
+        made = {label: dataclasses.replace(cfg, frontend=dataclasses.replace(
+            cfg.frontend, **change)) for label, cfg in cfgs.items()}
+        extract = {label: pt.make_extract_fn(c, dev) for label, c in made.items()}
+        kernels.reset_launch_counts()
+        feats = {label: [extract[label](pyr) for pyr, _ in results[label]] for label in cfgs}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        n = sum(len(f) for f in feats.values())
+        if launches[runs] != n or launches[idle] != 0:
+            raise AssertionError(f"{vname}: {runs} launched {launches[runs]} times, {idle} "
+                                 f"{launches[idle]} times, for {n} frames")
+        for label in cfgs:
+            ref = [f for _, f in results[label]]
+            if vname == "odd-border bucketing":
+                plain = pt.OrbExtractor(made[label], ops=kernels.PLAIN).to(dev)
+                ref = [plain(pyr) for pyr, _ in results[label]]
+            for i, (got, want) in enumerate(zip(feats[label], ref)):
+                if not features_equal(got, want):
+                    raise AssertionError(f"{vname} {label} frame {i}: Features differ")
+        out[vname] = launches
+        print(f"phase extraction {vname}: {n} frames (eval and VGA) bit-exact against "
+              f"{'its plain path' if vname == 'odd-border bucketing' else 'the default path'}"
+              f"; launches {json.dumps(launches)}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the VO path
 # ---------------------------------------------------------------------------
@@ -460,7 +618,8 @@ def vo_path(dev, seqs, card):
     launches = kernels.launch_counts()
     n_frames = sum(len(f) for f, _, _ in seqs.values())
     n_trans = n_frames - len(seqs)
-    for name, n in launches.items():
+    for name in FUSED_PATH_KERNELS:
+        n = launches[name]
         need = n_trans if name == "match_reduce" else n_frames
         if n < need:
             raise AssertionError(f"{name}: {n} launches for {need} frames or transitions")
@@ -586,6 +745,458 @@ def vo_profile(dev, seqs, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the SLAM path
+# ---------------------------------------------------------------------------
+
+SLAM_STAGES = ("extract", "track", "map_track", "insert_ba", "loop_detect", "global_ba",
+               "cull", "pose_graph")
+
+
+def make_slam(cfg, intr, dev, metrics=None, record=None):
+    """KeyframeSLAM as tools/eval_ate.py runs it, on the card; ``record``
+    collects each frame's Features."""
+    import pislam_tpu_torch as pt
+    slam = pt.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                           metrics=metrics, device=dev)
+    if record is not None:
+        extract = slam.vo.frontend.extract
+
+        def recording(pyr):
+            feats = extract(pyr)
+            record.append(feats)
+            return feats
+
+        slam.vo.frontend.extract = recording
+    return slam
+
+
+class Draws:
+    """geometry/ransac.sample_indices that logs the draws the main path makes
+    (from the state's generator, as it always does) or, with ``queue`` set,
+    hands out logged ones: the CPU replays a card step with the card's
+    draws."""
+
+    def __init__(self, draw):
+        self.draw, self.log, self.queue = draw, [], None
+
+    def __call__(self, valid, iters, sample_size, generator=None):
+        if self.queue is None:
+            self.log.append(self.draw(valid, iters, sample_size, generator))
+            return self.log[-1]
+        if not self.queue:
+            raise AssertionError("the CPU step draws more RANSAC samples than the card's")
+        return self.queue.pop(0)
+
+
+def snapshot(slam):
+    """What a step starts from: the state (counters included) and the two
+    host fields that set_state does not rebuild."""
+    return slam.state, slam._prev_pose, set(slam._culled_slots)
+
+
+def adopt(cpu, snap):
+    """The CPU KeyframeSLAM takes over a card snapshot."""
+    state, prev_pose, culled = snap
+
+    def host(table):
+        return type(table)(*(x.cpu() for x in table))
+
+    cpu.set_state(state._replace(store=host(state.store), lmap=host(state.lmap),
+                                 obs=host(state.obs), counters=state.counters.cpu(),
+                                 generator=torch.Generator()))
+    cpu._prev_pose, cpu._culled_slots = prev_pose, set(culled)
+
+
+def count_plain_k5():
+    """Counts calls of K5's plain version (the CPU's matcher calls)."""
+    from pislam_tpu_torch.ops import kernels
+    plain, calls = kernels.match_reduce.plain, [0]
+
+    def counting(*args):
+        calls[0] += 1
+        return plain(*args)
+
+    kernels.match_reduce.plain = counting
+    return calls, lambda: setattr(kernels.match_reduce, "plain", plain)
+
+
+def step_against_cpu(cpu, draws, snap, after, frame, want, first_draw, last_draw):
+    """One frame on the CPU from the card's state before it, with the card's
+    draws: the decisions, the counters after it and every RANSAC call the
+    same, inliers within INLIER_TOL, the frame's pose within SLAM_POSE_TOL.
+    Returns (mismatches, max |pose diff|, max |keyframe pose diff| after the
+    step, max |inlier diff|). Keyframe poses after an insert are not held:
+    its windowed BA is audited against float64 instead (ba_audit)."""
+    adopt(cpu, snap)
+    draws.queue = [d.cpu() for d in draws.log[first_draw:last_draw]]
+    got = cpu.process(frame)
+    bad = [k for k in ("keyframe", "lost", "relocalised") if got[k] != want[k]]
+    if draws.queue:
+        bad.append(f"{len(draws.queue)} RANSAC draws unused")
+    d_inl = max(abs(got[k] - want[k]) for k in ("num_inliers", "map_inliers"))
+    if d_inl > INLIER_TOL:
+        bad.append(f"inliers {got['num_inliers']}/{got['map_inliers']} vs card "
+                   f"{want['num_inliers']}/{want['map_inliers']}")
+    mine, card = cpu.state, after[0]
+    if not torch.equal(mine.counters, card.counters.cpu()):
+        bad.append(f"counters {mine.counters.tolist()} vs card {card.counters.tolist()}")
+    d_pose = max(float(np.abs(got[k] - want[k]).max()) for k in ("pose_R", "pose_t"))
+    if d_pose > SLAM_POSE_TOL:
+        bad.append(f"pose differs by {d_pose:.3g}")
+    valid = card.store.valid.cpu()
+    d_store = max(float((getattr(mine.store, k) - getattr(card.store, k).cpu())[valid]
+                        .abs().max()) for k in ("R", "t"))
+    return bad, d_pose, d_store, d_inl
+
+
+def closure_against_cpu(cpu, draws, snap, first_draw, want, want_post):
+    """close_loop on the CPU from the card's snapshot before it, with the
+    card's draws: the same loop, branch and matcher calls. Returns
+    (mismatches, the CPU's K5 calls, its closure, max |keyframe position
+    diff|); costs and positions come out of global BA and are printed, not
+    held (ba_audit holds BA's arithmetic)."""
+    adopt(cpu, snap)
+    draws.queue = [d.cpu() for d in draws.log[first_draw:]]
+    calls, restore = count_plain_k5()
+    try:
+        got = cpu.close_loop(min_matches=40, exclude_recent=3)
+    finally:
+        restore()
+    bad = [f"{k} {got[k]} vs card {want[k]}" for k in ("loop", "used_graph")
+           if got[k] != want[k]]
+    d_pos = float(np.abs(cpu.keyframe_positions() - want_post).max())
+    return bad, calls[0], got, d_pos
+
+
+class Recorder:
+    """Stands in for a module's function on the main path and keeps the
+    arguments of every call made on the card; the tables it is given are
+    never written in place, so they can be replayed afterwards."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn, self.calls = module, name, getattr(module, name), []
+        setattr(module, name, self)
+
+    def __call__(self, graph_or_problem, *args, **kw):
+        if graph_or_problem.R.is_cuda:
+            self.calls.append((graph_or_problem, args, kw))
+        return self.fn(graph_or_problem, *args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def _ba_terms(p, damping, huber, n_fixed):
+    """The first LM step's normal equations of a BA problem: H_cc, b_c,
+    H_pp, b_p and, at 48 cameras or fewer (the dense solver), the reduced
+    system S, b and its solution."""
+    from pislam_tpu_torch.backend import ba
+    r, jc, jp, _ = ba.residuals_and_jacobians(p, huber=huber)
+    if p.R.shape[0] > 48:
+        hcc, bc, hpp, bp = ba._normal_terms(ba._segments(p), r, jc, jp)
+        return {"hcc": hcc, "bc": bc, "hpp": hpp, "bp": bp}
+    hcc, bc, hpp, bp, w = ba.gn_normal_blocks(p, r, jc, jp)
+    lam = torch.tensor(damping, dtype=p.points.dtype, device=p.points.device)
+    s, b, _, _ = ba.schur_reduce(hcc, bc, hpp, bp, w, lam, p.cam_valid, n_fixed=n_fixed)
+    return {"hcc": hcc, "bc": bc, "hpp": hpp, "bp": bp, "S": s, "b": b,
+            "dc": torch.linalg.solve_ex(s, b)[0]}
+
+
+def _rel_err(x, ref):
+    """Relative Frobenius error of x against a float64 reference, over the
+    reference's finite entries (inf where x is not finite there)."""
+    x, ref = x.cpu().double(), ref.cpu()
+    keep = torch.isfinite(ref)
+    if not torch.isfinite(x[keep]).all():
+        return float("inf")
+    return float((x - ref)[keep].norm() / max(float(ref[keep].norm()), 1e-300))
+
+
+def ba_audit(calls):
+    """Every BA of the card's main path, from the card's own inputs: the
+    first LM step's normal equations (and, for the dense solver, the
+    reduced system) on the card must be as close to the same terms in
+    float64 on the CPU as the CPU's float32 ones are, within
+    BA_ERR_FACTOR times their error plus BA_ERR_FLOOR; the card's dense
+    solve must solve its own system to a normwise backward error below
+    BA_BACKWARD_TOL. Float32 BA is fragile where points are nearly free in
+    depth: the same rounding error on both devices then sends the LM
+    accept/reject either way, so the runs' BA outputs are not held to each
+    other. Returns (failures, worst ratio, worst backward error, calls)."""
+    from pislam_tpu_torch.backend import ba
+    bad, worst, backward = [], 0.0, 0.0
+    for i, (p, _, kw) in enumerate(calls):
+        args = (kw["damping"], kw["huber"], kw["n_fixed"])
+        card = _ba_terms(p, *args)
+        cpu32 = _ba_terms(ba.BAProblem(*(x.cpu() for x in p)), *args)
+        cpu64 = _ba_terms(ba.BAProblem(*(x.cpu().double() if x.is_floating_point()
+                                         else x.cpu() for x in p)), *args)
+        for k in card:
+            if k == "dc":
+                continue
+            e_card, e_cpu = _rel_err(card[k], cpu64[k]), _rel_err(cpu32[k], cpu64[k])
+            worst = max(worst, e_card / max(e_cpu, BA_ERR_FLOOR))
+            if not e_card <= BA_ERR_FACTOR * e_cpu + BA_ERR_FLOOR:
+                bad.append(f"BA {i} ({p.R.shape[0]} cameras) {k}: card error {e_card:.3g}, "
+                           f"CPU float32 {e_cpu:.3g} against float64")
+        if "dc" in card:
+            s, b, dc = card["S"], card["b"], card["dc"]
+            # 0 where every camera is pinned (b = 0, dc = 0)
+            num = float(torch.linalg.vector_norm(s @ dc - b))
+            err = num and num / float(torch.linalg.matrix_norm(s) * torch.linalg.vector_norm(dc)
+                                      + torch.linalg.vector_norm(b))
+            backward = max(backward, err)
+            if not err <= BA_BACKWARD_TOL:
+                bad.append(f"BA {i}: the card's solve has backward error {err:.3g}")
+    return bad, worst, backward, len(calls)
+
+
+def pose_graph_audit(graphs):
+    """Every pose-graph solve of the card's main path (a Recorder's calls)
+    again on the card and on the CPU from the card's inputs: poses within
+    SLAM_POSE_TOL. Returns (failures, max |pose diff|)."""
+    optimize = graphs.fn
+    bad, worst = [], 0.0
+    for i, (g, args, kw) in enumerate(graphs.calls):
+        card = optimize(g, *args, **kw)[0]
+        cpu = optimize(type(g)(*(None if x is None else x.cpu() for x in g)), *args, **kw)[0]
+        d = max(float((getattr(card, k).cpu() - getattr(cpu, k)).abs().max())
+                for k in ("R", "t"))
+        worst = max(worst, d)
+        if not d <= SLAM_POSE_TOL:
+            bad.append(f"pose graph {i} ({g.R.shape[0]} nodes): card and CPU differ by {d:.3g}")
+    return bad, worst
+
+
+def slam_path(dev, seqs, card):
+    """KeyframeSLAM over every sequence at full length, then close_loop: the
+    port's main path. Every launch count is exact: K1-K4 once per frame, K5
+    once per tracked frame and once more per map-tracked frame (Metrics),
+    and in each closure as often as the CPU calls K5's plain version on the
+    same closure. Then the CPU replays the run step by step: every frame from
+    the card's state before it with the card's RANSAC draws
+    (step_against_cpu), and the closure from the card's state before it
+    (closure_against_cpu); every BA and pose-graph solve the card made is
+    audited from its own inputs (ba_audit, pose_graph_audit). No frame may be
+    lost (the JAX package loses none on these sequences at any seed);
+    eval_seq4 fills the ring and closes against a surviving keyframe. The
+    ATEs are printed beside the JAX package's range over seeds
+    (SLAM_REFERENCE), which holds nothing."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch import evaluation
+    from pislam_tpu_torch.backend import ba, pose_graph
+    from pislam_tpu_torch.geometry import ransac
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.utils.metrics import Metrics
+
+    cfg = slam_config()
+    on_card = {name: torch.as_tensor(frames).to(dev) for name, (frames, _, _) in seqs.items()}
+    warm = make_slam(cfg, seqs["eval_seq"][1], dev)              # warm-up
+    for f in on_card["eval_seq"][:5]:
+        warm.process(f)
+    torch.cuda.synchronize()
+
+    draws = Draws(ransac.sample_indices)
+    ransac.sample_indices = draws
+    bas, graphs = Recorder(ba, "bundle_adjust"), Recorder(pose_graph, "optimize")
+    res, features, launches = {}, [], {k.__name__: 0 for k in kernels.COUNTED}
+    failures = []
+    try:
+        for name, (frames, intr, gt) in seqs.items():
+            metrics = Metrics(sink=lambda line: None)
+            slam = make_slam(cfg, intr, dev, metrics,
+                             record=features if name == "eval_seq" else None)
+            draws.log, draws.queue, bas.calls, graphs.calls = [], None, [], []
+            snaps, first, outs = [], [], []
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for f in on_card[name]:
+                snaps.append(snapshot(slam))
+                first.append(len(draws.log))
+                outs.append(slam.process(f))
+            torch.cuda.synchronize()
+            t_track = time.perf_counter() - t0
+            track_launches = kernels.launch_counts()
+            kf = slam.keyframe_frames
+            pre = slam.keyframe_positions()
+            surviving = {v.index for v in slam.keyframes}
+            snaps.append(snapshot(slam))
+            first.append(len(draws.log))
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            closure = slam.close_loop(min_matches=40, exclude_recent=3)
+            torch.cuda.synchronize()
+            t_close = time.perf_counter() - t0
+            close_launches = kernels.launch_counts()
+            for k in launches:
+                launches[k] += track_launches[k] + close_launches[k]
+            traj = np.stack(slam.trajectory)
+            if not np.isfinite(traj).all() or traj.shape != (len(frames), 3):
+                raise AssertionError(f"SLAM {name}: trajectory not finite or of wrong shape")
+            post = slam.keyframe_positions()
+            stages = metrics.snapshot()
+
+            # launches: exact per frame, per map-tracked frame, per closure
+            n_k5 = stages.get("calls.track", 0) + stages.get("calls.map_track", 0)
+            want = {k: len(frames) for k in FUSED_PATH_KERNELS} | {"match_reduce": n_k5}
+            for k, n in track_launches.items():
+                if n != want.get(k, 0):
+                    failures.append(f"{name}: {k} launched {n} times while tracking, "
+                                    f"expected {want.get(k, 0)}")
+
+            # the CPU replays every step and the closure
+            cpu = pt.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                                  device="cpu")
+            t0 = time.perf_counter()
+            bad_steps, d_pose, d_store, d_inl = [], 0.0, 0.0, 0
+            for i, frame in enumerate(frames):
+                bad, dp, ds, di = step_against_cpu(cpu, draws, snaps[i], snaps[i + 1], frame,
+                                                   outs[i], first[i], first[i + 1])
+                d_pose, d_store, d_inl = max(d_pose, dp), max(d_store, ds), max(d_inl, di)
+                bad_steps += [f"frame {i}: {b}" for b in bad]
+            bad, cpu_k5, cpu_closure, d_pos = closure_against_cpu(
+                cpu, draws, snaps[-1], first[-1], closure, post)
+            bad += [f"{k} launched {n} times in close_loop" for k, n in close_launches.items()
+                    if n != (cpu_k5 if k == "match_reduce" else 0)]
+            bad_ba, worst, backward, n_ba = ba_audit(bas.calls)
+            bad_graph, d_graph = pose_graph_audit(graphs)
+            t_cpu = time.perf_counter() - t0
+            bad += bad_ba + bad_graph
+            failures += [f"{name} card vs CPU {b}" for b in bad_steps + bad]
+            print(f"phase SLAM {name} card vs CPU: {len(frames)} steps from the card's state "
+                  f"with its draws, {len(bad_steps)} mismatching (decisions, counters, RANSAC "
+                  f"calls; frame poses within {d_pose:.3g}, tolerance {SLAM_POSE_TOL}; inliers "
+                  f"within {d_inl}, tolerance {INLIER_TOL}); close_loop: loop, branch and "
+                  f"{cpu_k5} K5 calls {'identical' if not bad else 'DIFFER'}; {n_ba} BAs' first "
+                  f"step at most {worst:.3g}x the CPU float32's error against float64 (limit "
+                  f"{BA_ERR_FACTOR:g}x + {BA_ERR_FLOOR:g}), dense solves' backward error "
+                  f"{backward:.3g}; {len(graphs.calls)} pose graphs within {d_graph:.3g}; not "
+                  f"held (float32 LM): keyframe poses after an insert within {d_store:.3g}, "
+                  f"keyframe positions after close_loop within {d_pos:.3g}, costs "
+                  f"{cpu_closure.get('cost_ba', 0):.6g} / {cpu_closure.get('cost_graph', 0):.6g}"
+                  f" on the CPU; CPU {t_cpu:.1f} s")
+            for b in (bad_steps + bad)[:10]:
+                print(f"  mismatch {name}: {b}")
+            res[name] = {"ates": {"slam_ate": evaluation.ate_rmse(traj, gt),
+                                  "kf_ate_pre": evaluation.ate_rmse(pre, gt[kf]),
+                                  "kf_ate_post": evaluation.ate_rmse(post, gt[kf])},
+                         "kf": kf, "inserted": slam.keyframes_inserted, "closure": closure,
+                         "loop_survives": closure["loop"] in surviving,
+                         "lost": slam.frames_lost, "reloc": slam.relocalisations,
+                         "t_track": t_track, "t_close": t_close, "frames": len(frames),
+                         "stages": stages, "map_tracked": stages.get("calls.map_track", 0)}
+    finally:
+        ransac.sample_indices = draws.draw
+        bas.restore()
+        graphs.restore()
+
+    for name, r in res.items():
+        ref = SLAM_REFERENCE[name]
+        parts = []
+        for i, (key, value) in enumerate(r["ates"].items()):
+            lo, hi = ref[key]
+            parts.append(f"{key} {value:.4f} (JAX seeds 7/0/1/2 [{lo:.4f}, {hi:.4f}], "
+                         f"seed 7 {ref['seed7'][i]:.4f}{'' if lo <= value <= hi else ', outside'})")
+        c = r["closure"]
+        print(f"phase SLAM {name}: {r['frames']} frames, {len(r['kf'])} keyframes "
+              f"({r['inserted']} inserted); {'; '.join(parts)}; loop {c['loop']} "
+              f"(survives {r['loop_survives']}), used_graph {c['used_graph']} (JAX in "
+              f"{ref['used_graph']} of 4 runs), cost_ba {c.get('cost_ba', 0):.6g} "
+              f"cost_graph {c.get('cost_graph', 0):.6g}; lost {r['lost']}, "
+              f"relocalisations {r['reloc']}; map-tracked frames (gated K5) {r['map_tracked']}")
+        print(f"time SLAM {name}: {r['t_track'] / r['frames'] * 1e3:.4f} ms/frame tracking "
+              f"(host clock to synchronize), close_loop {r['t_close'] * 1e3:.1f} ms [{card}]")
+        st = r["stages"]
+        print(f"time SLAM stages {name}: " + ", ".join(
+            f"{s} {st.get(f'time_ms.{s}', 0.0):.1f} ms / {st.get(f'calls.{s}', 0)} calls"
+            for s in SLAM_STAGES) + f" [{card}]")
+        if r["lost"]:
+            failures.append(f"{name}: {r['lost']} frames lost")
+    r4 = res["eval_seq4"]
+    if r4["inserted"] <= 64 or not r4["loop_survives"] or r4["closure"]["loop"] < 0:
+        failures.append(f"eval_seq4: inserted {r4['inserted']}, loop "
+                        f"{r4['closure']['loop']} survives {r4['loop_survives']}")
+    if failures:
+        raise AssertionError(f"SLAM path: {len(failures)} failures: " + "; ".join(failures[:20]))
+    print(f"phase SLAM path launches: {json.dumps(launches)}")
+    return launches, res, features
+
+
+def slam_unfused(dev, seqs, default):
+    """KeyframeSLAM on eval_seq with fused_upstream=False and the default
+    run's generator seed: every frame's Features and the keyframes must be
+    the default run's; K6 launches once per frame. Returns its launches."""
+    from pislam_tpu_torch.ops import kernels
+
+    frames, intr, _ = seqs["eval_seq"]
+    cfg = slam_config()
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                fused_upstream=False))
+    features = []
+    slam = make_slam(cfg, intr, dev, record=features)
+    kernels.reset_launch_counts()
+    for f in torch.as_tensor(frames).to(dev):
+        slam.process(f)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want_feats, want_kf = default
+    for i, (got, want) in enumerate(zip(features, want_feats)):
+        if not features_equal(got, want):
+            raise AssertionError(f"unfused SLAM frame {i}: Features differ from the default")
+    if len(features) != len(frames) or slam.keyframe_frames != want_kf:
+        raise AssertionError(f"unfused SLAM: keyframes {slam.keyframe_frames}, default {want_kf}")
+    if launches["reduce_codes_4x"] != len(frames) or launches["fused_frontend_codes"]:
+        raise AssertionError(f"unfused SLAM: launches {launches}")
+    print(f"phase SLAM unfused eval_seq: {len(frames)} frames' Features and the keyframes "
+          f"{slam.keyframe_frames} identical to the default run; launches "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def slam_profile(dev, seqs, card):
+    """torch.profiler over SLAM_PROFILE_FRAMES eval_seq frames (tracking,
+    keyframe inserts and windowed BA) after warm-up, and the synchronizing
+    calls per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frames, intr, _ = seqs["eval_seq"]
+    on_card = torch.as_tensor(frames[:SLAM_PROFILE_FRAMES]).to(dev)
+    make_slam(slam_config(), intr, dev).process(on_card[0])
+    slam = make_slam(slam_config(), intr, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in on_card:
+            slam.process(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in cuda)
+    n = len(on_card)
+    print(f"profile SLAM eval_seq {n} frames: host wall {wall / n * 1e3:.4f} ms/frame, "
+          f"device busy {busy_us / n / 1e3:.4f} ms/frame ({busy_us / (wall * 1e6) * 100:.1f} %), "
+          f"{len(cuda) / n:.1f} device ops/frame [{card}]")
+    by_name = {}
+    for e in cuda:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"profile SLAM device time {us / n:.2f} us/frame: {name[:100]}")
+
+    slam = make_slam(slam_config(), intr, dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for f in on_card[:8]:
+                slam.process(f)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    kinds = sorted({str(w.message).splitlines()[0][:80] for w in caught})
+    print(f"sync: SLAM makes {len(caught) / 8:.1f} synchronizing calls per frame over 8 "
+          f"eval_seq frames: {json.dumps(kinds)}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -629,13 +1240,18 @@ def main():
     errs["match_reduce"], k5_cases = k5_phase(dev, [f for f, _ in pairs], feats0["vga"],
                                               [p for _, p in pairs])
 
-    # phase 4: the extraction path
+    # phase 4: the extraction path, and the frontend's other configurations
     extract, results = extraction_path(dev, frames, cfgs)
+    variant_launches = extraction_variants(dev, cfgs, results)
 
     # phase 5: the VO path
-    launches, _ = vo_path(dev, seqs, card)
+    vo_path(dev, seqs, card)
 
-    # phase 6: times
+    # phase 6: the SLAM path (the main path), and SLAM with the unfused frontend
+    launches, slam_res, default_feats = slam_path(dev, seqs, card)
+    unfused_launches = slam_unfused(dev, seqs, (default_feats, slam_res["eval_seq"]["kf"]))
+
+    # phase 7: times
     for label, cfg in cfgs.items():
         frame = frames[label][0].to(dev)
         pyr = results[label][0][0]
@@ -673,15 +1289,24 @@ def main():
               f"{k5_bound(a5)[0] * 1e3:.3f} us [{card}]")
     vo_stage_times(dev, seqs, card)
     vo_profile(dev, seqs, card)
+    slam_profile(dev, seqs, card)
 
-    # the kernels at the VO path's shapes, with its launch counts
+    # the kernels at the eval shapes, each with its launches on its path: the
+    # SLAM path for K1-K5, SLAM with the unfused frontend for K6, the dense
+    # BRIEF extraction for K4d; no path of the JAX package runs K3c
+    paths = {name: ("SLAM", launches) for name in FUSED_PATH_KERNELS}
+    paths["reduce_codes_4x"] = ("SLAM unfused", unfused_launches)
+    paths["orb_select_bits"] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
+    paths["realign_windows"] = ("none", {"realign_windows": 0})
     out = []
-    for k in kernels.HOPPER:
+    for k in kernels.COUNTED:
         k_ms, p_ms, l_ms, b_ms, b_by = times["eval"][k.__name__]
+        path, counts = paths[k.__name__]
         out.append({"name": k.__name__, "route": "cuda", "source": k.source,
-                    "replaces": k.replaces, "launches": launches[k.__name__],
+                    "replaces": k.replaces, "launches": counts[k.__name__], "path": path,
                     "max_abs_err": errs[k.__name__], "ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+    print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

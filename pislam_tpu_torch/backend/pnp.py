@@ -2,10 +2,15 @@
 
 The port of ``pislam_tpu/backend/pnp.py``: robust Gauss-Newton on the
 reprojection error with a fixed iteration count and Huber re-weighting.
-Jacobians come from forward-mode autodiff of the residual at the identity
-perturbation (``torch.func.jacfwd``, as the JAX package uses ``jax.jacfwd``).
-The normal equations are solved with ``torch.linalg.solve_ex``, which does
-not read its status back to the host.
+The JAX package takes the Jacobian by forward-mode autodiff of the residual
+at the identity perturbation (``jax.jacfwd``); here it is written out, as
+``backend/ba.py`` writes its own: for a left-multiplicative twist
+[rho, w], d(xc)/d rho = I and d(xc)/d w = -[xc]_x, through the projection
+Jacobian: the same derivative in a dozen launches per iteration, where
+``torch.func.jacfwd``'s many small launches made this solve the largest
+stage of a SLAM frame on the card. The normal equations are solved with
+``torch.linalg.solve_ex``, which does not read its status back to the
+host.
 """
 
 from __future__ import annotations
@@ -15,12 +20,31 @@ import torch
 from ..geometry import se3
 
 
+def _camera_points(R, t, xyz):
+    """(N, 3) camera-frame points and the (N,) depths the projection
+    divides by, world->cam pose."""
+    xc = xyz @ R.T + t
+    return xc, torch.where(xc[:, 2] > 1e-6, xc[:, 2], 1.0)  # NaN-free behind the camera
+
+
 def _project_residuals(R, t, xyz, uv):
     """(N, 2) reprojection residuals + (N,) depths, world->cam pose."""
-    xc = xyz @ R.T + t
-    z = xc[:, 2]
-    zs = torch.where(z > 1e-6, z, 1.0)  # NaN-free for behind-camera points
-    return xc[:, :2] / zs[:, None] - uv, z
+    xc, zs = _camera_points(R, t, xyz)
+    return xc[:, :2] / zs[:, None] - uv, xc[:, 2]
+
+
+def _jacobian(xc, zs):
+    """(N, 2, 6) d(residual)/d[rho, w] at the identity perturbation. Where
+    z <= 1e-6 the divisor is the constant 1, as in the residual."""
+    x, y = xc[:, 0], xc[:, 1]
+    inv = 1.0 / zs
+    front = (xc[:, 2] > 1e-6).to(xc.dtype)
+    zero = torch.zeros_like(inv)
+    jpi = torch.stack([
+        torch.stack([inv, zero, -x * inv * inv * front], -1),
+        torch.stack([zero, inv, -y * inv * inv * front], -1),
+    ], -2)                                               # (N, 2, 3)
+    return torch.cat([jpi, jpi @ -se3.hat(xc)], -1)
 
 
 def motion_only_ba(R0, t0, xyz, uv, valid, iters: int = 8,
@@ -37,15 +61,12 @@ def motion_only_ba(R0, t0, xyz, uv, valid, iters: int = 8,
     eye6 = torch.eye(6, dtype=R0.dtype, device=R0.device)
     costs = []
     for _ in range(iters):
-        def res(xi, R=R, t=t):
-            dR, dt = se3.se3_exp(xi)
-            return _project_residuals(dR @ R, (dR @ t[:, None])[:, 0] + dt, xyz, uv)[0]
-
-        r, z = _project_residuals(R, t, xyz, uv)
-        J = torch.func.jacfwd(res)(torch.zeros(6, dtype=R.dtype, device=R.device))
+        xc, zs = _camera_points(R, t, xyz)
+        r = xc[:, :2] / zs[:, None] - uv
+        J = _jacobian(xc, zs)
         rn = torch.linalg.vector_norm(r, dim=1)
         w = torch.where(rn > huber, huber / torch.clamp(rn, min=1e-12), 1.0)
-        w = torch.where(valid & (z > 1e-6), w, 0.0)
+        w = torch.where(valid & (xc[:, 2] > 1e-6), w, 0.0)
         Jw = J * w[:, None, None]
         H = torch.einsum("nki,nkj->ij", Jw, J) + damping * eye6
         b = -torch.einsum("nki,nk->i", Jw, r)

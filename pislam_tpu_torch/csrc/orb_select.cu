@@ -1,9 +1,9 @@
 // K4: disc moments -> atan2 angle bin -> the 256 rotated-BRIEF bits of that
 // bin, per keypoint, from its packed 32x32 int8 window.
 //
-// Replaces orb_select_bits_sorted / _orb_sorted_kernel and the dense
-// orb_select_bits / _orb_select_kernel (pislam_tpu/ops/pallas_kernels.py
-// :528, :503, :465, :444): both variants give identical bits. The TPU ran
+// Replaces orb_select_bits_sorted / _orb_sorted_kernel (pislam_tpu/ops/
+// pallas_kernels.py:528, :503); the dense variant, orb_select_bits (:465),
+// gives identical bits and has its own kernel (orb_select_dense.cu). The TPU ran
 // (K, 1024) x (1024, 7808) int8 dots against GDIFF, whose column (rot, i) is
 // onehot(idx1) - onehot(idx0); the sign of that dot is p[idx1] - p[idx0], so
 // here bit i is the direct compare p[idx1[bin][i]] > p[idx0[bin][i]] (equal
@@ -12,39 +12,11 @@
 // One block of 256 threads per keypoint: the window goes to shared memory,
 // each thread adds the moment products of 4 bytes (exact in int32), a warp
 // shuffle and shared-memory sum reduce them, thread 0 computes the bin, and
-// thread i computes bit i; a warp ballot packs word i / 32, bit i % 32.
-//
-// atan2_bins (pislam_tpu/ops/orientation.py:91) truncates a float
-// polynomial, so a contracted FMA could move a bin: every float step uses an
-// explicitly rounded intrinsic, and the divide is IEEE (__fdiv_rn).
+// thread i computes bit i; a warp ballot packs word i / 32, bit i % 32. The
+// bin is common.cuh's FMA-free atan2_bin, shared with K4d.
 #include "common.cuh"
 
 namespace {
-
-// float32 values of orientation.py:86-88 (256 * 60/pi-scaled polynomial)
-constexpr float kC0 = 256.0f * 14.999998f;
-constexpr float kC1 = 256.0f * 4.723436f;
-constexpr float kC2 = 256.0f * 1.266240f;
-
-__device__ __forceinline__ int atan2_bin(int x, int y) {
-  const float xf = fabsf(__int2float_rn(x));
-  const float yf = fabsf(__int2float_rn(y));
-  const float zmax = fmaxf(xf, yf);
-  const float zmin = fminf(xf, yf);
-  const float z = __fdiv_rn(zmin, fmaxf(zmax, 1e-30f));
-  const float poly = __fadd_rn(kC1, __fmul_rn(kC2, z));
-  const float inner = __fsub_rn(kC0, __fmul_rn(__fsub_rn(z, 1.0f), poly));
-  const int angle = __float2int_rz(__fmul_rn(z, inner));
-
-  const bool signs_differ = (x < 0) != (y < 0);
-  const bool xdom = abs(x) > abs(y);
-  int a1 = signs_differ ? -angle : angle;               // Orb.h:357-365
-  a1 = x < 0 ? a1 + 256 * 60 : (a1 < 0 ? a1 + 256 * 120 : a1);
-  int a2 = signs_differ ? angle : -angle;               // Orb.h:366-375
-  a2 = y >= 0 ? a2 + 256 * 30 : a2 + 256 * 90;
-  const int out = (xdom ? a1 : a2) >> 10;
-  return (out >= 0 && out < 30 && zmax > 0.0f) ? out : 0;
-}
 
 __global__ void __launch_bounds__(256)
 orb_select_kernel(const int8_t* __restrict__ flat,

@@ -4,8 +4,9 @@ The port of ``pislam_tpu/frontend.py`` (reference demo.cpp:78-101). FAST,
 Harris and NMS run as one dense pass over the whole stacked
 (padded_height, stride) buffer, per-level borders are one validity mask,
 and keypoint y coordinates are global pyramid rows. On a CUDA device the
-four steps of the path are Hopper kernels (``ops/kernels.py``): K1 fused
-frontend, K2 top-k, K3 window gather, K4 ORB select.
+steps of the path are Hopper kernels (``ops/kernels.py``): K1 fused frontend
+(or, unfused, FAST/Harris/NMS in plain torch then K6's code reduction), K2
+top-k, K3 window gather, K4 ORB select (K4d for ``brief_variant="dense"``).
 
 Output is a fixed-capacity ``Features`` batch, strongest first by
 (score, x, y).
@@ -88,14 +89,17 @@ def _extract_impl(img, level_mask, cfg: PislamConfig, tables: brief.OrbTables,
             scored = (enc >> 24).to(torch.uint8)
         else:
             scored = torch.where(keep, score, torch.zeros_like(score))
-        codes, valid = nms.select_topk_scored(scored, fc.max_keypoints)
+        # K6: the 2x2 code max of the scored survivors, then K2
+        codes, valid = nms.select_topk_scored(scored, fc.max_keypoints,
+                                              reduce=ops.reduce_codes_4x,
+                                              topk=ops.topk_keys)
 
     xs = codec.decode_x(codes).to(torch.int32)
     ys = codec.decode_y(codes).to(torch.int32)
     flat = patches.gather_patches_packed_s8(img, xs, ys, valid,
                                             gather=ops.gather_windows_packed)
     angles, desc = brief.orb_compute_packed(flat, fc.words, fc.brief_variant,
-                                            tables, select=ops.orb_select)
+                                            tables, ops=ops)
     desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
     angles = torch.where(valid, angles, torch.zeros_like(angles))
     return Features(codes=codes, valid=valid, angles=angles, descriptors=desc)

@@ -42,6 +42,9 @@ SIGNATURES = {
     "pislam_atan2_bins": (_P, _P, _I, _P, _P),
     "pislam_match_reduce": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P),
+    "pislam_reduce_codes": (_P, _I, _I, _P, _P),
+    "pislam_orb_select_dense": (_P, _I, _P, _I, _P, _P, _P),
+    "pislam_realign_windows": (_P, _P, _P, _I, _P, _P),
 }
 
 

@@ -18,6 +18,7 @@ the compare above.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -114,20 +115,37 @@ def _pack_bits_u8(bits, words: int):
     return codec.u32_to_i32((b << shifts).sum(dim=-1))
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_weights(device: str) -> torch.Tensor:
+    return torch.as_tensor(_gm_packed(), device=device)
+
+
+def dense_weights(device) -> torch.Tensor:
+    """K4d's constant (1024, 7808) int8 weights (``_gm_packed``) on a device,
+    built once per device."""
+    return _dense_weights(str(torch.device(device)))
+
+
 def orb_compute_packed(flat, words: int = 8, variant: str = "dense",
-                       tables: OrbTables | None = None, select=None):
-    """Fused orientation + descriptors from packed windows: the K4 kernel on
-    CUDA, for both variants (they give identical bits, config.py:112-121).
+                       tables: OrbTables | None = None, ops=None):
+    """Fused orientation + descriptors from packed windows, as the JAX
+    package computes them per variant (pislam_tpu/ops/brief.py:141-145):
+    "sorted" through K4 (``orb_select``, 256 direct compares), "dense"
+    through K4d (``orb_select_bits`` with the ``_gm_packed`` weights). The
+    two give identical bits (config.py:112-121).
 
     (K, 1024) int8 windows -> ((K,) uint8 angle bins, (K, words) int32).
-    ``tables`` default to ones built on the windows' device; ``select``
-    replaces ``kernels.orb_select``.
+    ``tables`` default to ones built on the windows' device; ``ops`` is a
+    ``kernels.KernelSet`` (default ``kernels.HOPPER``).
     """
     if variant not in ("dense", "sorted"):
         raise ValueError(f"unknown brief variant {variant!r}")
+    ops = ops or kernels.HOPPER
+    if variant == "dense":
+        angles, bits = ops.orb_select_bits(flat, dense_weights(flat.device))
+        return angles.to(torch.uint8), _pack_bits_u8(bits, words)
     tables = tables if tables is not None else OrbTables.build(flat.device)
-    select = select or kernels.orb_select
-    return select(flat, tables.idx0, tables.idx1, tables.mom_w, words)
+    return ops.orb_select(flat, tables.idx0, tables.idx1, tables.mom_w, words)
 
 
 def _orb_compute_packed_dense(flat, words: int = 8):

@@ -27,15 +27,15 @@ K2 topk_keys             csrc/topk.cu
 K3 gather_windows_packed csrc/gather_windows.cu
     Replaces ``pack_row_strips`` + ``realign_windows2d``
     (pallas_kernels.py:73, :145) inside ``gather_windows_packed``
-    (pallas_kernels.py:195); also covers the 3-D ``realign_windows``
-    (pallas_kernels.py:172), which gives the same bytes. Bound: 2 MB of
+    (pallas_kernels.py:195); the 3-D ``realign_windows`` (K3c below)
+    gives the same bytes. Bound: 2 MB of
     output at K=2048, written once. Design: a direct gather, one thread
     per output word (4 window rows of one column), XOR 0x80 fused in;
     the TPU's strips and rotates were workarounds for its gather cost.
 K4 orb_select            csrc/orb_select.cu
     Replaces ``orb_select_bits_sorted`` / ``_orb_sorted_kernel``
-    (pallas_kernels.py:528) and the dense ``orb_select_bits``
-    (pallas_kernels.py:465): both give identical bits. Bound: 2 MB of
+    (pallas_kernels.py:528); the dense ``orb_select_bits`` (K4d below)
+    gives identical bits. Bound: 2 MB of
     windows read once; the work is 2x1024 moment products and 256
     compares per keypoint. Design: one block per keypoint, window in
     shared memory, exact int32 moments, IEEE-exact atan2 bins (no FMA
@@ -51,6 +51,22 @@ K5 match_reduce          csrc/match_reduce.cu
     popcount, one thread per query row over shared-memory database tiles,
     the database split across blocks and merged with the TPU's exact rule;
     column first-argmins by atomicMin on (distance << 16 | row) keys.
+K6 reduce_codes_4x       csrc/reduce_codes.cu
+    Replaces ``reduce_codes_4x`` / ``_vmerge_kernel`` and ``reduce_keys_2x``
+    (pallas_kernels.py:949, :917, :936): the unfused frontend's scored NMS
+    grid -> 2x2 code max. Bound: bytes, 1 read + 2 written per pixel.
+    Design: one thread per output code, codes in true row order.
+K4d orb_select_bits      csrc/orb_select_dense.cu
+    Replaces ``orb_select_bits`` / ``_orb_select_kernel``
+    (pallas_kernels.py:465, :444) under its own contract: any (1024, 7808)
+    int8 weight matrix, (K,) int32 bins, (K, 256) uint8 bits. Bound: bytes,
+    the selected 256 KB slabs. Design: one block per keypoint, the window in
+    shared memory, K4's atan2 bin, then only the selected slab's 256 dots.
+K3c realign_windows      csrc/realign_windows.cu
+    Replaces ``realign_windows`` / ``_realign_kernel`` (pallas_kernels.py:172,
+    :92): strip rows -> packed windows. No path of the JAX package runs it.
+    Bound: bytes, 1 KB written per keypoint. Design: one funnel shift per
+    output word, the composition of the TPU's rotate and shift rounds.
 """
 
 from __future__ import annotations
@@ -128,7 +144,12 @@ def fused_frontend_codes_plain(img, mask, fast_t: int, harris_t: int):
     """
     corner = fast.fast_detect(img, fast_t)
     score = harris.harris_score(img, harris_t, mask=corner & (mask != 0))
-    enc = nms.encode_grid(score, nms.nms(score))
+    return _max_2x2(nms.encode_grid(score, nms.nms(score)))
+
+
+def _max_2x2(enc):
+    """(H, W) int64 codes -> (ceil(H/2), ceil(W/2)) int32 bit patterns of
+    each 2x2 block's largest code (a ragged edge pads with 0)."""
     h, w = enc.shape
     if h % 2 or w % 2:
         padded = enc.new_zeros((h + h % 2, w + w % 2))
@@ -139,12 +160,16 @@ def fused_frontend_codes_plain(img, mask, fast_t: int, harris_t: int):
     return codec.u32_to_i32(red)
 
 
+def _check_code_size(h: int, w: int):
+    if h > 4096 or w > 4096:
+        raise ValueError(f"image {h}x{w}: codes hold 12-bit coordinates")
+
+
 @hopper_kernel(fused_frontend_codes_plain, "pislam_tpu_torch/csrc/fused_frontend.cu",
                "pislam_tpu/ops/pallas_kernels.py:387")
 def fused_frontend_codes(img, mask, fast_t: int, harris_t: int):
     h, w = img.shape
-    if h > 4096 or w > 4096:
-        raise ValueError(f"image {h}x{w}: codes hold 12-bit coordinates")
+    _check_code_size(h, w)
     _check(img, "img", torch.uint8, 2, img.device)
     _check(mask, "mask", torch.uint8, 2, img.device)
     if mask.shape != img.shape:
@@ -241,6 +266,74 @@ def gather_windows_packed(img, xs, ys, valid):
 
 
 # ---------------------------------------------------------------------------
+# K3c: strip rows -> packed windows, under realign_windows' contract
+# ---------------------------------------------------------------------------
+
+STRIP_ROWS = 9      # 4-row packs per keypoint: 36 rows cover 32 + 3
+
+
+def pack_row_strips(img):
+    """(H, W) uint8 -> (W // 128 - 1, H // 4, 256) int32, no kernel (K3a
+    stays inside K3): strip s, row r, column c holds image rows 4r..4r+3 of
+    column 128 s + c, little-endian, as a u32 bit pattern
+    (pallas_kernels.py:73)."""
+    h, w = img.shape
+    if h % 4 or w % 128 or w < 256:
+        raise ValueError(f"pack_row_strips: image {h}x{w} needs H % 4 == 0, "
+                         "W % 128 == 0 and W >= 256")
+    b = img.to(torch.int64).reshape(h // 4, 4, w)
+    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    strips = torch.stack([words[:, 128 * s: 128 * s + 256] for s in range(w // 128 - 1)])
+    return codec.u32_to_i32(strips)
+
+
+def strip_window_rows(img, xs, ys, valid):
+    """K3c's inputs for keypoints of an image, as ``gather_windows_packed``
+    of the JAX package builds them (pallas_kernels.py:216-232): (K, 9, 256)
+    int32 strip rows, (K,) int32 psi and phi."""
+    h, w = img.shape
+    h4, ns = h // 4, w // 128 - 1
+    strips = pack_row_strips(img).reshape(ns * h4, 256)
+    x0, y0 = _window_origin(xs.long(), ys.long(), valid, h, w)
+    strip = torch.clamp(x0 >> 7, 0, ns - 1)
+    r = torch.arange(STRIP_ROWS, device=img.device)
+    ridx = torch.minimum(strip[:, None] * h4 + (y0 >> 2)[:, None] + r,
+                         (strip[:, None] + 1) * h4 - 1)
+    rows = strips[ridx]
+    return rows, (y0 & 3).to(torch.int32), (x0 - 128 * strip).to(torch.int32)
+
+
+def realign_windows_plain(rows, psi, phi):
+    """(K, 9, 256) int32 strip rows + (K,) psi in [0, 4), phi in [0, 225) ->
+    (K, 8, 32) int32: word (p, c) is the funnel shift right by 8 psi of rows
+    p + 1 : p at column phi + c (the composition of pallas_kernels.py:97-108's
+    rotate and byte-shift rounds)."""
+    cols = phi.long()[:, None] + torch.arange(32, device=rows.device)
+    words = rows.to(torch.int64) & 0xFFFFFFFF          # the u32 values
+    sel = words.gather(2, cols[:, None, :].expand(-1, STRIP_ROWS, -1))
+    joined = sel[:, :8] | (sel[:, 1:] << 32)
+    out = (joined >> (8 * psi.long())[:, None, None]) & 0xFFFFFFFF
+    return codec.u32_to_i32(out)
+
+
+@hopper_kernel(realign_windows_plain, "pislam_tpu_torch/csrc/realign_windows.cu",
+               "pislam_tpu/ops/pallas_kernels.py:172")
+def realign_windows(rows, psi, phi):
+    dev = rows.device
+    _check(rows, "rows", torch.int32, 3, dev)
+    _check(psi, "psi", torch.int32, 1, dev)
+    _check(phi, "phi", torch.int32, 1, dev)
+    k = rows.shape[0]
+    if rows.shape[1:] != (STRIP_ROWS, 256) or psi.numel() != k or phi.numel() != k:
+        raise ValueError(f"realign_windows: rows {tuple(rows.shape)}, psi {psi.numel()}, "
+                         f"phi {phi.numel()}: expects (K, 9, 256), (K,), (K,)")
+    out = torch.empty((k, 8, 32), dtype=torch.int32, device=dev)
+    _call("pislam_realign_windows", dev, rows.data_ptr(), psi.data_ptr(), phi.data_ptr(),
+          k, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K4: disc moments -> atan2 bin -> the 256 BRIEF bits of that rotation
 # ---------------------------------------------------------------------------
 
@@ -298,6 +391,48 @@ def atan2_bins(m10, m01):
     _call("pislam_atan2_bins", dev, m10.data_ptr(), m01.data_ptr(), m10.numel(),
           out.data_ptr())
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4d: the dense rotation-select, under orb_select_bits' contract
+# ---------------------------------------------------------------------------
+
+GM_COLS = 30 * 256 + 128      # 30 slabs of 256 bits + one tile of moment columns
+MOMENT_COL = 30 * 256
+
+
+def orb_select_bits_plain(flat, gm):
+    """(K, 1024) int8 windows + (1024, 7808) int8 weights -> ((K,) int32
+    angle bins, (K, 256) uint8 bits).
+
+    The bin comes from the moments in gm's columns 7680 and 7681; bit j is
+    dot(window, gm[:, 256 bin + j]) > 0. float32 is exact here: every
+    product is at most 2^14 in size and every sum of 1024 of them at most
+    2^24, an integer that float32 holds.
+    """
+    out = (flat.to(torch.float32) @ gm.to(torch.float32)).to(torch.int32)
+    angles = orientation.atan2_bins(out[:, MOMENT_COL], out[:, MOMENT_COL + 1])
+    a = angles.long()
+    cols = (a[:, None] * 256 + torch.arange(256, device=flat.device))
+    bits = out.gather(1, cols) > 0
+    return a.to(torch.int32), bits.to(torch.uint8)
+
+
+@hopper_kernel(orb_select_bits_plain, "pislam_tpu_torch/csrc/orb_select_dense.cu",
+               "pislam_tpu/ops/pallas_kernels.py:465")
+def orb_select_bits(flat, gm):
+    dev = flat.device
+    _check(flat, "flat", torch.int8, 2, dev)
+    _check(gm, "gm", torch.int8, 2, dev)
+    if flat.shape[1] != 1024 or gm.shape != (1024, GM_COLS):
+        raise ValueError(f"orb_select_bits: flat {tuple(flat.shape)}, gm {tuple(gm.shape)}: "
+                         f"expects (K, 1024) and (1024, {GM_COLS})")
+    k = flat.shape[0]
+    angles = torch.empty(k, dtype=torch.int32, device=dev)
+    bits = torch.empty((k, 256), dtype=torch.uint8, device=dev)
+    _call("pislam_orb_select_dense", dev, flat.data_ptr(), k, gm.data_ptr(), GM_COLS,
+          angles.data_ptr(), bits.data_ptr())
+    return angles, bits
 
 
 # ---------------------------------------------------------------------------
@@ -373,29 +508,57 @@ def match_reduce(desc1, desc2, valid1, valid2, uv1=None, uv2=None, radius=None):
     return best, second, idx, col
 
 
+# ---------------------------------------------------------------------------
+# K6: scored NMS survivors -> 2x2 code max
+# ---------------------------------------------------------------------------
+
+def reduce_codes_4x_plain(scored):
+    """(H, W) uint8 scored survivors (0 = none) -> (ceil(H/2), ceil(W/2))
+    int32: the u32 code bit pattern of each 2x2 block's survivor, or 0, in
+    true row order (the JAX package's rows come out as two planes, even then
+    odd rows)."""
+    return _max_2x2(nms.encode_grid(scored, scored > 0))
+
+
+@hopper_kernel(reduce_codes_4x_plain, "pislam_tpu_torch/csrc/reduce_codes.cu",
+               "pislam_tpu/ops/pallas_kernels.py:949")
+def reduce_codes_4x(scored):
+    h, w = scored.shape
+    _check_code_size(h, w)
+    _check(scored, "scored", torch.uint8, 2, scored.device)
+    out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=torch.int32, device=scored.device)
+    _call("pislam_reduce_codes", scored.device, scored.data_ptr(), h, w, out.data_ptr())
+    return out
+
+
 class KernelSet(NamedTuple):
-    """The five kernels of the VO path: four of extraction, one of matching."""
+    """The kernels of the SLAM path: K1-K4 of the fused frontend, K6 of the
+    unfused one, K4d of the dense BRIEF variant, and K5 of matching."""
 
     fused_frontend_codes: Callable
     topk_keys: Callable
     gather_windows_packed: Callable
     orb_select: Callable
     match_reduce: Callable
+    reduce_codes_4x: Callable
+    orb_select_bits: Callable
 
 
 # The wrappers: plain on CPU tensors, Hopper kernels on CUDA tensors.
 HOPPER = KernelSet(fused_frontend_codes, topk_keys, gather_windows_packed,
-                   orb_select, match_reduce)
+                   orb_select, match_reduce, reduce_codes_4x, orb_select_bits)
 # The plain versions on any device: the reference the kernels are held to.
 PLAIN = KernelSet(fused_frontend_codes_plain, topk_keys_plain,
                   gather_windows_packed_plain, orb_select_plain,
-                  match_reduce_plain)
+                  match_reduce_plain, reduce_codes_4x_plain, orb_select_bits_plain)
+# Every kernel with a launch count: the path's, and K3c, which no path runs.
+COUNTED = (*HOPPER, realign_windows)
 
 
 def reset_launch_counts():
-    for k in HOPPER:
+    for k in COUNTED:
         k.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.__name__: k.launches for k in HOPPER}
+    return {k.__name__: k.launches for k in COUNTED}

@@ -62,15 +62,16 @@ def select_topk(enc_grid, k: int):
     return codes, codes != 0
 
 
-def select_topk_scored(scored, k: int):
-    """Fixed-capacity selection from a scored-survivor grid (u8, 0 = none).
-
-    The JAX package runs its K6 kernel (``reduce_codes_4x``) here on the
-    accelerator. It has no Hopper kernel yet, so a CUDA tensor raises.
+def select_topk_scored(scored, k: int, reduce=None, topk=None):
+    """Fixed-capacity selection from a scored-survivor grid (u8, 0 = none):
+    K6 (``kernels.reduce_codes_4x``, the 2x2 code max, exact because 3x3 NMS
+    leaves at most one survivor per 2x2 block) then K2's top-k, as the JAX
+    package runs it on the accelerator (pislam_tpu/ops/nms.py:105-107).
+    ``reduce`` and ``topk`` replace the two kernels (e.g. with their plain
+    versions). Returns ((k,) int64 codes, (k,) bool valid), strongest first.
     """
-    if scored.device.type != "cpu":
-        raise NotImplementedError("K6 reduce_codes_4x not yet ported")
-    return select_topk(encode_grid(scored, scored > 0), k)
+    reduce = reduce or kernels.reduce_codes_4x
+    return select_topk_codes(reduce(scored), k, topk=topk)
 
 
 def select_topk_codes(codes_grid, k: int, topk=None):

@@ -1,4 +1,5 @@
-"""The Hopper kernels on the card against their plain versions, bit-exact.
+"""The Hopper kernels on the card against their plain versions, bit-exact,
+and one SLAM run on the card against the CPU.
 
 These need a CUDA card and skip elsewhere. The card's machine has no jax,
 so this file imports only the port, and runs there without the suite's
@@ -172,5 +173,92 @@ def test_frontend_on_card_matches_cpu(dev):
     # one launch of each extraction kernel; K5 belongs to matching
     assert kernels.launch_counts() == {"fused_frontend_codes": 1, "topk_keys": 1,
                                        "gather_windows_packed": 1, "orb_select": 1,
-                                       "match_reduce": 0}
+                                       "match_reduce": 0, "reduce_codes_4x": 0,
+                                       "orb_select_bits": 0, "realign_windows": 0}
     _same(tuple(on_card), tuple(pislam_tpu_torch.make_extract_fn(cfg, device="cpu")(pyr)))
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (61, 77), (800, 384), (2216, 640)])
+def test_k6(dev, shape):
+    rng = np.random.default_rng(shape[0])
+    scored = np.zeros(shape, np.uint8)
+    n = shape[0] * shape[1] // 40
+    ys, xs = rng.integers(0, shape[0], n), rng.integers(0, shape[1], n)
+    scored[ys - ys % 2, xs - xs % 2] = rng.integers(1, 256, n)   # <= 1 per 2x2 block
+    args = (t(scored).to(dev),)
+    _same(kernels.reduce_codes_4x(*args), kernels.reduce_codes_4x_plain(*args))
+
+
+@pytest.mark.parametrize("k,gm", [(512, "brief"), (2048, "brief"), (300, "random")])
+def test_k4d(dev, k, gm):
+    rng = np.random.default_rng(k)
+    flat = t(rng.integers(-128, 128, (k, 1024)).astype(np.int8)).to(dev)
+    g = (brief.dense_weights(dev) if gm == "brief" else
+         t(rng.integers(-128, 128, (1024, kernels.GM_COLS)).astype(np.int8)).to(dev))
+    _same(kernels.orb_select_bits(flat, g), kernels.orb_select_bits_plain(flat, g))
+    if gm == "brief":
+        ang, bits = kernels.orb_select_bits(flat, g)
+        k4ang, k4desc = kernels.orb_select(flat, *brief.OrbTables.build(dev), 8)
+        _same(ang, k4ang.to(torch.int32))
+        _same(brief._pack_bits_u8(bits, 8), k4desc)
+
+
+def test_k3c(dev):
+    rng = np.random.default_rng(9)
+    k = 1024
+    rows = t(rng.integers(0, 2**32, (k, 9, 256), dtype=np.uint32).view(np.int32)).to(dev)
+    psi = t(np.concatenate([np.repeat(np.arange(4), 225), rng.integers(0, 4, k - 900)])
+            .astype(np.int32)).to(dev)
+    phi = t(np.concatenate([np.tile(np.arange(225), 4), rng.integers(0, 225, k - 900)])
+            .astype(np.int32)).to(dev)
+    _same(kernels.realign_windows(rows, psi, phi), kernels.realign_windows_plain(rows, psi, phi))
+    img = t(image(200, 384, 3)).to(dev)
+    xs = t(rng.integers(-20, 400, 500).astype(np.int32)).to(dev)
+    ys = t(rng.integers(-20, 220, 500).astype(np.int32)).to(dev)
+    valid = t(rng.random(500) < 0.8).to(dev)
+    words = kernels.realign_windows(*kernels.strip_window_rows(img, xs, ys, valid))
+    win = (words.reshape(-1, 256).view(torch.uint8) ^ 0x80).view(torch.int8)
+    _same(win, kernels.gather_windows_packed(img, xs, ys, valid))
+
+
+def test_slam_on_card_matches_cpu(dev, monkeypatch):
+    """Four eval_seq frames of SLAM (the bootstrap keyframe, two tracked
+    frames, then an insert with its windowed BA) on the card and on the CPU,
+    both drawing their RANSAC samples from one CPU generator: the same
+    decisions and counters, poses within 1e-3. (Later frames are not held
+    together: the first window's LM turns on float noise, tests/test_torch_slam.py.)"""
+    import dataclasses
+
+    from pislam_tpu_torch import BAConfig, MapConfig
+    from pislam_tpu_torch.geometry import ransac
+
+    cfg = dataclasses.replace(
+        PislamConfig(pyramid=PyramidConfig(base_width=384, base_height=256, num_levels=4),
+                     frontend=FrontendConfig(fast_threshold=14, harris_threshold=1 << 9,
+                                             border=16, max_keypoints=512),
+                     matcher=MatcherConfig(max_distance=64, ratio=0.85),
+                     vo=VOConfig(ransac_iters=256, inlier_threshold=2e-3, min_inliers=20)),
+        ba=BAConfig(window=6, max_points=1024, max_obs=4096, gn_iters=4),
+        map=MapConfig(gate_radius=0.06, keyframe_capacity=16))
+    d = np.load(DATA / "eval_seq.npz")
+    intr = [float(d[k]) for k in ("fx", "fy", "cx", "cy")]
+    draw = ransac.sample_indices
+    runs = []
+    for device in (dev, "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        monkeypatch.setattr(ransac, "sample_indices", lambda valid, iters, size, _g=None: draw(
+            valid.cpu(), iters, size, gen).to(valid.device))
+        kernels.reset_launch_counts()
+        slam = pislam_tpu_torch.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60,
+                                             keyframe_max_gap=3, device=device)
+        outs = [slam.process(f) for f in d["frames"][:4]]
+        runs.append((outs, slam.state.counters.cpu(), slam.keyframe_frames,
+                     kernels.launch_counts()))
+    (card, c_card, kf_card, n_card), (cpu, c_cpu, kf_cpu, _) = runs
+    assert kf_card == kf_cpu == [0, 3] and torch.equal(c_card, c_cpu)
+    assert n_card["fused_frontend_codes"] == 4 and n_card["match_reduce"] >= 3
+    for a, b in zip(card, cpu):
+        assert a["keyframe"] == b["keyframe"]
+        assert abs(a["num_inliers"] - b["num_inliers"]) <= 2
+        assert np.abs(a["pose_R"] - b["pose_R"]).max() <= 1e-3
+        assert np.abs(a["pose_t"] - b["pose_t"]).max() <= 1e-3

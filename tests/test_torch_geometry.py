@@ -216,6 +216,26 @@ def test_motion_only_ba():
     close(z, jz, 1e-6)
 
 
+def test_motion_only_ba_jacobian_is_jacfwd():
+    """The written-out PnP Jacobian is the JAX package's jax.jacfwd of the
+    residual at the identity perturbation, behind-camera points included."""
+    rng = np.random.default_rng(10)
+    n = 64
+    xyz = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    xyz[:8, 2] = -2.0                                # behind the camera
+    R = np.asarray(jse3.so3_exp(jnp.asarray([0.3, -0.2, 0.1], jnp.float32)))
+    tv = np.array([0.2, -0.1, 4.0], np.float32)
+    uv = rng.normal(0, 0.3, (n, 2)).astype(np.float32)
+
+    def res(xi):
+        dR, dt = jse3.se3_exp(xi)
+        return jpnp._project_residuals(dR @ R, dR @ tv + dt, xyz, uv)[0]
+
+    want = jax.jacfwd(res)(jnp.zeros(6, jnp.float32))
+    got = tpnp._jacobian(*tpnp._camera_points(t(R), t(tv), t(xyz)))
+    close(got, want, 1e-5)
+
+
 # ---------------------------------------------------------------------------
 # evaluation
 # ---------------------------------------------------------------------------

@@ -64,6 +64,11 @@ WRAPPER_ARGS = {
     "atan2_bins": lambda: (_meta((8,), torch.int32), _meta((8,), torch.int32)),
     "match_reduce": lambda: (_meta((40, 8), torch.int32), _meta((50, 8), torch.int32),
                              _meta((40,), torch.bool), _meta((50,), torch.bool)),
+    "reduce_codes_4x": lambda: (_meta((64, 64), torch.uint8),),
+    "orb_select_bits": lambda: (_meta((8, 1024), torch.int8),
+                                _meta((1024, kernels.GM_COLS), torch.int8)),
+    "realign_windows": lambda: (_meta((8, 9, 256), torch.int32), _meta((8,), torch.int32),
+                                _meta((8,), torch.int32)),
 }
 
 
@@ -103,7 +108,9 @@ def test_build_without_cuda_raises():
 
 
 def test_k6_path_raises_off_cpu():
-    with pytest.raises(NotImplementedError, match="K6 reduce_codes_4x not yet ported"):
+    """The unfused selection goes through K6's wrapper, which has no kernel
+    for a device other than CUDA and no fallback."""
+    with pytest.raises(ValueError, match="reduce_codes_4x: no kernel for device meta"):
         nms.select_topk_scored(torch.empty((64, 64), dtype=torch.uint8, device="meta"), 16)
 
 

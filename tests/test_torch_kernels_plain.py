@@ -10,6 +10,11 @@ K3 gather_windows_packed vs gather_windows_packed, and the CPU branch of
                             patches.gather_patches_packed_s8
 K4 orb_select            vs orb_select_bits and orb_select_bits_sorted, and
                             brief._orb_compute_packed_dense
+K6 reduce_codes_4x       vs reduce_codes_4x (its rows un-permuted), and
+                            encode_grid + a 2x2 max
+K4d orb_select_bits      vs orb_select_bits, with the real and a random gm
+K3c realign_windows      vs realign_windows over every psi and phi, and
+                            pack_row_strips vs pack_row_strips
 """
 
 import functools
@@ -29,6 +34,7 @@ from pislam_tpu.ops import pallas_kernels as pk
 from pislam_tpu.ops import patches as jpatches
 from pislam_tpu_torch.ops import brief as tbrief
 from pislam_tpu_torch.ops import kernels
+from pislam_tpu_torch.ops import nms as tnms
 from pislam_tpu_torch.utils import codec as tcodec
 from torch_parity import image, t, textured_image
 
@@ -221,3 +227,121 @@ def test_k4_vs_xla_dense(words):
         vang, vdesc = tbrief.orb_compute_packed(t(flat), words, variant)
         assert np.array_equal(vang.numpy(), got_ang)
         assert np.array_equal(vdesc.numpy().view(np.uint32), got_desc)
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+def _survivor_grid(h, w, n, seed):
+    """A sparse scored grid with NMS's at most one survivor per 2x2 block,
+    placed anywhere in its block."""
+    rng = np.random.default_rng(seed)
+    scored = np.zeros((h, w), np.uint8)
+    blocks = rng.choice((h // 2) * (w // 2), n, replace=False)
+    ys = 2 * (blocks // (w // 2)) + rng.integers(0, 2, n)
+    xs = 2 * (blocks % (w // 2)) + rng.integers(0, 2, n)
+    scored[ys, xs] = rng.integers(1, 256, n).astype(np.uint8)
+    return scored
+
+
+def _unpermute_rows(red):
+    """The JAX kernel's output row i < H/4 is true row 2i, row H/4 + i is
+    true row 2i + 1 (pallas_kernels.py:932-933, 965)."""
+    h4 = red.shape[0] // 2
+    out = np.empty_like(red)
+    out[0::2], out[1::2] = red[:h4], red[h4:]
+    return out
+
+
+@pytest.mark.parametrize("shape,n", [((64, 256), 120), ((800, 384), 3000)])
+def test_k6_vs_pallas_interpret(shape, n):
+    scored = _survivor_grid(*shape, n, shape[0])
+    with pltpu.force_tpu_interpret_mode():
+        red = np.asarray(pk.reduce_codes_4x(jnp.asarray(scored)))
+    got = kernels.reduce_codes_4x(t(scored))
+    assert got.dtype == torch.int32 and got.shape == (shape[0] // 2, shape[1] // 2)
+    assert np.array_equal(_unpermute_rows(red), got.numpy().view(np.uint32))
+    assert np.count_nonzero(red) == n
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (61, 77), (800, 384)])
+def test_k6_vs_xla_encode(shape):
+    """The XLA encode_grid's codes, 2x2-max reduced (odd edges padded)."""
+    scored = _survivor_grid(shape[0] - shape[0] % 2, shape[1] - shape[1] % 2, 100, 1)
+    scored = np.pad(scored, ((0, shape[0] % 2), (0, shape[1] % 2)))
+    scored[-1, -1] = 7                  # a survivor on the ragged corner
+    enc = np.asarray(jnms.encode_grid(jnp.asarray(scored), jnp.asarray(scored > 0)))
+    enc = np.pad(enc.astype(np.int64), ((0, shape[0] % 2), (0, shape[1] % 2)))
+    want = enc.reshape(enc.shape[0] // 2, 2, enc.shape[1] // 2, 2).max(axis=(1, 3))
+    got = tcodec.i32_to_u32(kernels.reduce_codes_4x(t(scored))).numpy()
+    assert np.array_equal(want, got)
+
+
+def test_k6_selection_vs_jax():
+    """select_topk_scored (K6 then K2) against the JAX package's own."""
+    scored = _survivor_grid(800, 384, 3000, 9)
+    codes, valid = tnms.select_topk_scored(t(scored), 512)
+    jcodes, jvalid = jnms.select_topk_scored(jnp.asarray(scored), 512)
+    assert np.array_equal(codes.numpy(), np.asarray(jcodes).astype(np.int64))
+    assert np.array_equal(valid.numpy(), np.asarray(jvalid))
+
+
+# ---------------------------------------------------------------------------
+# K4d
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gm", ["brief", "random"])
+def test_k4d_vs_pallas_interpret(gm):
+    flat = _windows(37, k=256)
+    if gm == "brief":
+        g = jbrief._gm_packed()
+    else:
+        g = np.random.default_rng(5).integers(-128, 128, (1024, pk.ORB_GCOLS)).astype(np.int8)
+    with pltpu.force_tpu_interpret_mode():
+        ang, bits = pk.orb_select_bits(jnp.asarray(flat), jnp.asarray(g))
+    got_ang, got_bits = kernels.orb_select_bits(t(flat), t(g))
+    assert got_ang.dtype == torch.int32 and got_bits.dtype == torch.uint8
+    assert np.array_equal(np.asarray(ang), got_ang.numpy())
+    assert np.array_equal(np.asarray(bits), got_bits.numpy())
+    if gm == "brief":
+        assert np.array_equal(g, tbrief.dense_weights("cpu").numpy())
+
+
+# ---------------------------------------------------------------------------
+# K3c
+# ---------------------------------------------------------------------------
+
+def test_k3c_vs_pallas_interpret_every_offset():
+    rng = np.random.default_rng(13)
+    k = 1024                      # all 4 x 225 (psi, phi), padded to 8 blocks
+    psi = np.concatenate([np.repeat(np.arange(4), 225), rng.integers(0, 4, k - 900)])
+    phi = np.concatenate([np.tile(np.arange(225), 4), rng.integers(0, 225, k - 900)])
+    psi, phi = psi.astype(np.int32), phi.astype(np.int32)
+    rows = rng.integers(0, 2**32, (k, pk.NR, 256), dtype=np.uint32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pk.realign_windows(jnp.asarray(rows), jnp.asarray(psi),
+                                             jnp.asarray(phi)))
+    got = kernels.realign_windows(t(rows.view(np.int32)), t(psi), t(phi))
+    assert got.dtype == torch.int32 and got.shape == (k, 8, 32)
+    assert np.array_equal(want, got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(64, 384), (48, 768)])
+def test_pack_row_strips_vs_pallas_interpret(shape):
+    img = image(*shape, 4)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pk.pack_row_strips(jnp.asarray(img)))
+    got = kernels.pack_row_strips(t(img))
+    assert np.array_equal(want, got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_k3c_gives_k3s_bytes(case):
+    """K3c on strip rows of an image gives K3's windows: the same bytes,
+    before K3's XOR to int8."""
+    img, xs, ys, valid = (t(a) for a in GATHER_CASES[case]())
+    words = kernels.realign_windows(*kernels.strip_window_rows(img, xs, ys, valid))
+    b = words.reshape(-1, 256).numpy().view(np.uint8).reshape(-1, 1024)
+    want = kernels.gather_windows_packed(img, xs, ys, valid).numpy()
+    assert np.array_equal((b ^ 0x80).view(np.int8), want)

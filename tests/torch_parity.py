@@ -94,3 +94,21 @@ def assert_features_equal(jf, tf):
                           tf.descriptors.numpy().view(np.uint32))
     for prop in ("xs", "ys", "scores", "num_valid"):
         assert np.array_equal(np.asarray(getattr(jf, prop)), getattr(tf, prop).numpy())
+
+
+class JaxDraws:
+    """The port's ``geometry/ransac.sample_indices`` drawing what the JAX
+    package draws from ``key``: the next ``jax.random.split`` and
+    ``jax.random.categorical`` over the same valid mask
+    (pislam_tpu/geometry/ransac.py:31, models/slam.py:382)."""
+
+    def __init__(self, key):
+        self.key = jax.numpy.asarray(key)
+        self.calls = 0
+
+    def __call__(self, valid, iters, sample_size, generator=None):
+        self.key, sub = jax.random.split(self.key)
+        self.calls += 1
+        logits = jax.numpy.where(jax.numpy.asarray(valid.numpy()), 0.0, -jax.numpy.inf)
+        idx = jax.random.categorical(sub, logits[None, :], shape=(iters, sample_size))
+        return torch.from_numpy(np.asarray(idx).astype(np.int64))
