@@ -8,20 +8,30 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: nvcc compiles the eight Hopper kernels from pislam_tpu_torch/csrc,
-   one process per source, all at once.
-3. kernels: K1-K4, K4's atan2 bins, K6, K4d and K3c against their plain
-   PyTorch versions on the card, bit-exact, at the extraction shapes (VGA
-   8-level pyramid with 2048 keypoints, and the eval config's 4-level
+2. build: nvcc compiles the nine Hopper kernels from pislam_tpu_torch/csrc,
+   one process per source, all at once; the build's seconds, each kernel's
+   registers and shared memory, and the count of IGMMA (int8 wgmma)
+   instructions in the library's SASS.
+3. kernels: K1-K4, K4's atan2 bins, K6, K4d, K3c and K3a against their
+   plain PyTorch versions on the card, bit-exact, at the extraction shapes
+   (VGA 8-level pyramid with 2048 keypoints, and the eval config's 4-level
    384x256 pyramid with 512), including invalid and edge keypoints and an
-   atan2 sweep; K6 on the unfused frontend's scored grid (its top-k gives
-   K1's keypoints), K4d at K and 2048 keypoints (also against K4's bits),
-   K3c on 2048 keypoints' strip rows (also against K3's bytes); K5
-   (ungated and gated) bit-exact at (512, 512) from eval features,
-   (2048, 2048) from VGA features, (2048, 16384) tiled as tools/ab_match.py
-   tiles it, and gated with radius 0.06 at (512, 16384), each with invalid
-   rows and columns, duplicated descriptors and again with a K1 of no block
-   multiple.
+   atan2 sweep; K2 also on fewer survivors than k, n = k, n = k + 1, every
+   key INT32_MIN, survivors sharing their top byte and k = 8192 over VGA's
+   keys; K6 on the unfused
+   frontend's scored grid (its top-k gives K1's keypoints), K4d at K and
+   2048 keypoints (also against K4's bits), K3c on 2048 keypoints' strip
+   rows (also against K3's bytes), K3a on each pyramid; K5 (ungated and
+   gated) bit-exact at (512, 512) from eval features, (2048, 2048) from VGA
+   features, (2048, 16384) tiled as tools/ab_match.py tiles it, and gated
+   with radius 0.06 at (512, 8192), the map-tracking shape, and (512,
+   16384), each with invalid rows and columns, duplicated descriptors, ties
+   across tiles, segments and row tiles, and again with K1 - 13; then
+   K1 = 65 and 127, K2 no multiple of the 128-column tile, and 1 and 4
+   descriptor words; K5 on two streams at once, each its own merge state.
+   K2 also at the default config's pyramids of a KITTI (1241x376: 555,520
+   keys) and a 720p frame (1,062,400 keys), whose keys stay in device
+   memory, at k = 512, 2048 and 8192, and timed there.
 4. extraction path: 48 frames of data/eval_seq.npz at the eval config and 8
    seeded VGA frames at the default config, each frame -> build_pyramid ->
    make_extract_fn(cfg, "cuda"), compared frame by frame with the plain path
@@ -48,9 +58,10 @@ prints no result line):
    eval_seq with fused_upstream=False: the same Features every frame and
    the same keyframes, K6 once per frame.
 7. times from CUDA events (median of 30 after warm-up) and host clocks
-   ending in a synchronize, SLAM stage times, torch.profiler windows over
-   20 VO and 20 SLAM frames, and which operations make the host wait; the
-   card's name and power limit on every line.
+   ending in a synchronize, device time and device kernels per call from
+   torch.profiler, SLAM stage times, torch.profiler windows over 20 VO and
+   20 SLAM frames, and which operations make the host wait; the card's name
+   and power limit on every line.
 
 The line before the last is {"kernels": [...]}, the last line is
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
@@ -79,6 +90,9 @@ CPU_FRAMES = 4
 CPU_TRANSITIONS = 4
 PROFILE_FRAMES = 20
 REPS = 30
+# a torch.profiler window that records no device work at all (it happens on
+# the card's machine) is taken again, up to this many times
+PROFILE_TRIES = 3
 # VO ATE of the JAX package on each committed sequence (EVAL_r05.json)
 SEQUENCES = {"eval_seq": 0.5005, "eval_seq2": 0.6024, "eval_seq3": 0.7923,
              "eval_seq4": 0.7456}
@@ -134,9 +148,8 @@ BA_BACKWARD_TOL = 1e-5
 SLAM_PROFILE_FRAMES = 20
 # the __global__ functions of K1-K5 (the VO path's), as the profiler names them
 HOPPER_KERNEL_FUNCTIONS = (
-    "fused_frontend_kernel", "histogram_kernel", "select_digit_kernel", "compact_kernel",
-    "sort_desc_kernel", "gather_windows_kernel", "orb_select_kernel", "match_rows_kernel",
-    "match_finish_kernel")
+    "fused_frontend_kernel", "topk_cluster_kernel", "gather_windows_kernel",
+    "orb_select_kernel", "match_wgmma_kernel")
 
 
 def eval_config():
@@ -193,20 +206,24 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, reps: int = 20) -> float:
+def device_us(fn, reps: int = 20) -> tuple[float, float]:
     """Device time per call of the CUDA work fn launches (kernels, copies,
     memsets), summed from a torch.profiler trace: what the card spends,
-    without the host's launch cost that a CUDA-event time includes."""
+    without the host's launch cost that a CUDA-event time includes; and the
+    number of device operations per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return sum(e.time_range.elapsed_us() for e in ops) / reps, len(ops) / reps
 
 
 def bound_ms(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
@@ -272,6 +289,17 @@ def kernel_phase(dev, pyramids, cfgs):
         few[few.argsort(descending=True)[k // 3:]] = nms.INT32_MIN
         require_equal(f"K2 {label} few", kernels.topk_keys(few, k),
                       kernels.topk_keys_plain(few, k))
+        mixed = torch.cat([top[:k // 2], keys[:k + 1 - k // 2]])   # survivors and zeros
+        for name, (kk, kn) in {"n=k": (mixed[:k], k), "n=k+1": (mixed, k),
+                               "all INT32_MIN": (torch.full_like(keys, nms.INT32_MIN), k),
+                               # survivors sharing their top byte: more than one radix pass
+                               "shared top byte": (torch.where(keys != nms.INT32_MIN,
+                                                               (keys & 0xFFFFFF) | 0x12000000,
+                                                               keys), k),
+                               f"k={kernels.MAX_TOPK}": (keys, kernels.MAX_TOPK)}.items():
+            kk = kk.contiguous()
+            require_equal(f"K2 {label} {name}", kernels.topk_keys(kk, kn),
+                          kernels.topk_keys_plain(kk, kn))
 
         codes = codec.i32_to_u32(top ^ nms.INT32_MIN)
         xs = codec.decode_x(codes).to(torch.int32)
@@ -328,6 +356,9 @@ def kernel_phase(dev, pyramids, cfgs):
         win = (words.reshape(-1, 256).view(torch.uint8) ^ 0x80).view(torch.int8)
         require_equal(f"K3c {label} vs K3", win.reshape(-1, 1024),
                       kernels.gather_windows_packed(pyr, kx, ky, kv))
+        strips = kernels.pack_row_strips(pyr)
+        errs["pack_row_strips"] = max(errs["pack_row_strips"], require_equal(
+            f"K3a {label}", strips, kernels.pack_row_strips_plain(pyr)))
 
         # times at the main path's shapes (the keypoints alone, no extras)
         args3 = (pyr, xs, ys, valid)
@@ -354,6 +385,9 @@ def kernel_phase(dev, pyramids, cfgs):
             # each keypoint's 9 rows x 32 words, psi and phi; 1 KB out
             "realign_windows": (args3c, None, bound_ms(
                 k * (9 * 32 * 4 + 8 + 1024), 0, SCALAR_OPS_S)),
+            # the image in, every strip's words out
+            "pack_row_strips": ((pyr,), None, bound_ms(
+                n_px + strips.numel() * 4, 0, SCALAR_OPS_S)),
         }
 
     m10, m01 = (torch.as_tensor(m, device=dev) for m in orientation.sweep_moments())
@@ -361,9 +395,10 @@ def kernel_phase(dev, pyramids, cfgs):
     require_equal("K4 atan2 sweep (card plain)", bins, orientation.atan2_bins(m10, m01))
     require_equal("K4 atan2 sweep (CPU plain)", bins.cpu(),
                   orientation.atan2_bins(m10.cpu(), m01.cpu()))
-    print(f"phase kernels: ok, K1-K4, K6, K4d (K and 2048 keypoints, also against K4) and "
-          f"K3c (2048 keypoints, also against K3's bytes) bit-exact (tolerance 0) on VGA "
-          f"and eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
+    print(f"phase kernels: ok, K1-K4 (K2 also at n=k, n=k+1, all INT32_MIN, a shared top "
+          f"byte, k=8192), K6, K4d (K and 2048 keypoints, also against K4), K3c (2048 "
+          f"keypoints, also against K3's bytes) and K3a bit-exact (tolerance 0) on VGA and "
+          f"eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
 
 
@@ -413,6 +448,27 @@ def _k5_inputs(d1, v1, d2, v2, rng, uv1=None, uv2=None):
     return args
 
 
+def _k5_ties(args, plan) -> tuple[bool, bool]:
+    """Whether some column's least distance is reached by rows of two row
+    tiles of the plan, and some row's by columns of two segments."""
+    from pislam_tpu_torch import matching
+    dist = matching.hamming_matrix(*args[:4])
+    if len(args) == 7:
+        dist = matching.gate(dist, *args[4:])
+    k1, k2 = dist.shape
+    tile = (torch.arange(k1, device=dist.device) // plan.rows)[:, None].expand(k1, k2)
+    seg = (torch.arange(k2, device=dist.device)
+           // (plan.tiles_per_segment * 128))[None, :].expand(k1, k2)
+    at_col = dist == dist.amin(0, keepdim=True)
+    at_row = dist == dist.amin(1, keepdim=True)
+    big = 1 << 30
+    col_tie = (torch.where(at_col, tile, -1).amax(0) != torch.where(at_col, tile, big).amin(0))
+    row_tie = (torch.where(at_row, seg, -1).amax(1) != torch.where(at_row, seg, big).amin(1))
+    col_ok = dist.amin(0) < matching.MAX_DIST
+    row_ok = dist.amin(1) < matching.MAX_DIST
+    return bool((col_tie & col_ok).any()), bool((row_tie & row_ok).any())
+
+
 def k5_phase(dev, eval_feats, vga_feats, pts):
     """K5 against its plain version on the card at the main path's and the
     map's shapes: two consecutive eval frames' features (and normalised
@@ -436,10 +492,20 @@ def k5_phase(dev, eval_feats, vga_feats, pts):
         "512x512": _k5_inputs(e0, ev0, e1, ev1, rng),
         "2048x2048": _k5_inputs(g0, gv0, *_tile_database(g0, gv0, 2048, rng), rng),
         "2048x16384": _k5_inputs(g0, gv0, gd2, gv2, rng),
+        # map tracking: slam_config's 8192 landmarks
+        "512x8192 gated": _k5_inputs(e0, ev0, ed2[:8192], ev2[:8192], rng, p0, puv2[:8192]),
         "512x16384 gated": _k5_inputs(e0, ev0, ed2, ev2, rng, p0, puv2),
     }
     err = 0
     on_card = {}
+
+    def check(name, args):
+        nonlocal err
+        got = kernels.match_reduce(*args)
+        want = kernels.match_reduce_plain(*args)
+        for part, g, w in zip(("best", "second", "idx", "col_argmin"), got, want):
+            err = max(err, require_equal(f"K5 {name} {part}", g, w))
+
     for name, args in cases.items():
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
         if len(args) == 6:
@@ -448,13 +514,122 @@ def k5_phase(dev, eval_feats, vga_feats, pts):
         for k1 in (args[0].shape[0], args[0].shape[0] - 13):   # 13: no block multiple
             cut = [args[0][:k1], args[1], args[2][:k1], args[3]] + (
                 [args[4][:k1], args[5], args[6]] if len(args) == 7 else [])
-            got = kernels.match_reduce(*cut)
-            want = kernels.match_reduce_plain(*cut)
-            for part, g, w in zip(("best", "second", "idx", "col_argmin"), got, want):
-                err = max(err, require_equal(f"K5 {name} K1={k1} {part}", g, w))
+            check(f"{name} K1={k1}", cut)
+        plan = kernels.match_plan(args[0].shape[0], args[1].shape[0],
+                                  kernels.device_limits(dev)[0])
+        col_tie, row_tie = _k5_ties(args, plan)
+        # the ungated cases tie a column's least distance across two row tiles
+        # and a row's across two segments (duplicated rows and descriptors)
+        if len(args) == 4 and plan.row_tiles > 1 and plan.segments > 1 and not (
+                col_tie and row_tie):
+            raise AssertionError(f"K5 {name}: no tie across row tiles and segments")
+        print(f"K5 {name}: plan {plan.warpgroups} warpgroup(s) x {plan.row_tiles} row tiles "
+              f"x {plan.segments} segments of {plan.tiles_per_segment} tiles = {plan.ctas} "
+              f"CTAs; a column tied across row tiles: {col_tie}, a row across segments: "
+              f"{row_tie}")
+
+    def words(args, w):
+        return [args[0][:, :w].contiguous(), args[1][:, :w].contiguous(), *args[2:]]
+
+    edges = {
+        "512x512 K1=65": [a[:65] if i in (0, 2) else a for i, a in enumerate(on_card["512x512"])],
+        "512x512 K1=127": [a[:127] if i in (0, 2) else a
+                           for i, a in enumerate(on_card["512x512"])],
+        "2048x16384 K2=16307": [a[:16307] if i in (1, 3) else a
+                                for i, a in enumerate(on_card["2048x16384"])],
+        "512x512 words=1": words(on_card["512x512"], 1),
+        "2048x2048 words=4": words(on_card["2048x2048"], 4),
+        "512x8192 gated words=4": words(on_card["512x8192 gated"], 4),
+    }
+    for name, args in edges.items():
+        check(name, args)
+
+    # two streams at once: the wrapper keeps a merge state per stream
+    a, b = on_card["2048x16384"], on_card["512x16384 gated"]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    got = []
+    for _ in range(4):
+        for stream, args in zip(streams, (a, b)):
+            with torch.cuda.stream(stream):
+                got.append((args, kernels.match_reduce(*args)))
+    torch.cuda.synchronize(dev)
+    for i, (args, out) in enumerate(got):
+        for part, g, w in zip(("best", "second", "idx", "col_argmin"), out,
+                              kernels.match_reduce_plain(*args)):
+            err = max(err, require_equal(f"K5 two streams call {i} {part}", g, w))
     print(f"phase kernels: ok, K5 bit-exact (tolerance 0) at {', '.join(cases)}, "
-          f"each also with K1 - 13")
+          f"each also with K1 - 13, at {', '.join(edges)}, and on two streams at once")
     return err, on_card
+
+
+# frames larger than VGA at the default config: their pyramids' keys do not
+# fit the K2 cluster's shared memory
+K2_FRAMES = {"kitti": (1241, 376), "720p": (1280, 720)}
+
+
+def topk_large_phase(dev):
+    """K2 at the default config's pyramids of KITTI and 720p frames (K1's
+    keys of a seeded random frame), bit-exact against its plain version at
+    k = 512, 2048 (the default) and 8192, and with fewer survivors than k.
+    Returns max |error| and, per frame, the keys, the default k and the
+    pyramid's shape, for the times of phase 7."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.ops import kernels, nms
+    from pislam_tpu_torch.ops.pyramid import build_pyramid
+
+    err, cases = 0, {}
+    for label, (w, h) in K2_FRAMES.items():
+        cfg = pt.PislamConfig(pyramid=pt.PyramidConfig(base_width=w, base_height=h))
+        fc = cfg.frontend
+        frame = np.random.default_rng(w).integers(0, 256, (h, w), np.uint8)
+        pyr = build_pyramid(torch.from_numpy(frame).to(dev), cfg.pyramid)
+        mask = pt.make_extract_fn(cfg, dev).level_mask.view(torch.uint8)
+        grid = kernels.fused_frontend_codes(pyr, mask, fc.fast_threshold, fc.harris_threshold)
+        keys = (grid.reshape(-1) ^ nms.INT32_MIN).contiguous()
+        k = fc.max_keypoints
+        few = keys.clone()
+        few[few.argsort(descending=True)[k // 3:]] = nms.INT32_MIN
+        for name, (kk, kn) in {"k=512": (keys, 512), f"k={k}": (keys, k),
+                               f"k={kernels.MAX_TOPK}": (keys, kernels.MAX_TOPK),
+                               "few": (few, k)}.items():
+            err = max(err, require_equal(f"K2 {label} {name}", kernels.topk_keys(kk, kn),
+                                         kernels.topk_keys_plain(kk, kn)))
+        cases[label] = (keys, k, tuple(pyr.shape))
+    print(f"phase kernels: ok, K2 bit-exact (tolerance 0) at the {' and '.join(K2_FRAMES)} "
+          f"pyramids, k = 512, 2048, 8192 and fewer survivors than k")
+    return err, cases
+
+
+def topk_large_times(dev, cases, card):
+    """K2's times at the KITTI and 720p pyramids, beside torch.topk's."""
+    from pislam_tpu_torch.ops import kernels, nms
+
+    for label, (keys, k, shape) in cases.items():
+        plan = kernels.topk_plan(keys.numel(), k, kernels.device_limits(dev)[1])
+        b_ms, b_by = bound_ms(keys.numel() * 4 + k * 4, 4 * keys.numel(), SCALAR_OPS_S)
+        d_us, d_n = device_us(lambda: kernels.topk_keys(keys, k))
+        print(f"time kernel topk_keys at {label} ({shape}, {keys.numel()} keys, "
+              f"{int((keys != nms.INT32_MIN).sum())} nonzero, k={k}, keys in "
+              f"{'shared' if plan.chunk else 'device'} memory): "
+              f"{time_ms(lambda: kernels.topk_keys(keys, k)):.4f} ms (device {d_us:.2f} us, "
+              f"{d_n:g} device kernels per call), plain "
+              f"{time_ms(lambda: kernels.topk_keys_plain(keys, k)):.4f} ms, library "
+              f"{time_ms(lambda: torch.topk(keys, k)):.4f} ms, bound {b_ms * 1e3:.3f} us "
+              f"({b_by}) [{card}]")
+
+
+def sass_igmma(lib) -> str:
+    """How many int8 wgmma (IGMMA) instructions the library's SASS holds, as
+    cuobjdump shows it, or why that was not checked."""
+    from pislam_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return "not checked (no cuobjdump)"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    n = sum("IGMMA" in line for line in out.stdout.splitlines())
+    return f"{n} IGMMA instructions (cuobjdump -sass)"
 
 
 def k5_bound(args) -> tuple[float, str]:
@@ -739,7 +914,7 @@ def vo_profile(dev, seqs, card):
     for name, us in top:
         print(f"profile VO device time {us / n:.2f} us/frame: {name[:100]}")
     for label, fns in (("K1-K5", HOPPER_KERNEL_FUNCTIONS),
-                       ("K5", ("match_rows_kernel", "match_finish_kernel"))):
+                       ("K5", ("match_wgmma_kernel",))):
         us = sum(t for name, t in by_name.items() if any(f in name for f in fns))
         print(f"profile VO device time of {label}: {us / n:.2f} us/frame [{card}]")
 
@@ -1223,6 +1398,7 @@ def main():
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if "Used" in line or "Compiling entry" in line:
             print("  ptxas", line.split("ptxas info    :")[-1].strip())
+    print(f"phase build: SASS of the library: {sass_igmma(lib)}")
 
     cfgs = {"eval": eval_config(), "vga": pt.PislamConfig()}
     seqs = {name: load_sequence(name) for name in SEQUENCES}
@@ -1239,6 +1415,8 @@ def main():
     pairs = [odo.frontend(frames["eval"][i]) for i in (0, 1)]
     errs["match_reduce"], k5_cases = k5_phase(dev, [f for f, _ in pairs], feats0["vga"],
                                               [p for _, p in pairs])
+    k2_err, k2_cases = topk_large_phase(dev)
+    errs["topk_keys"] = max(errs["topk_keys"], k2_err)
 
     # phase 4: the extraction path, and the frontend's other configurations
     extract, results = extraction_path(dev, frames, cfgs)
@@ -1274,19 +1452,21 @@ def main():
             k_ms = time_ms(lambda: kern(*args))
             p_ms = time_ms(lambda: kern.plain(*args))
             l_ms = time_ms(library) if library else None
-            d_us = device_us(lambda: kern(*args))
+            d_us, d_n = device_us(lambda: kern(*args))
             times[label][name] = (k_ms, p_ms, l_ms, b_ms, b_by)
             lib_txt = f", library {l_ms:.4f} ms" if library else ""
             print(f"time kernel {name} at {label} shapes: {k_ms:.4f} ms (device "
-                  f"{d_us:.2f} us), plain {p_ms:.4f} ms{lib_txt}, bound {b_ms * 1e3:.3f} us "
-                  f"({b_by}) [{card}]")
-    for shape in ("2048x16384", "512x16384 gated"):
+                  f"{d_us:.2f} us, {d_n:g} device kernels per call), plain {p_ms:.4f} ms"
+                  f"{lib_txt}, bound {b_ms * 1e3:.3f} us ({b_by}) [{card}]")
+    for shape in ("512x8192 gated", "2048x16384", "512x16384 gated"):
         a5 = k5_cases[shape]
+        d_us, d_n = device_us(lambda: kernels.match_reduce(*a5))
         print(f"time kernel match_reduce at {shape}: "
               f"{time_ms(lambda: kernels.match_reduce(*a5)):.4f} ms (device "
-              f"{device_us(lambda: kernels.match_reduce(*a5)):.2f} us), plain "
+              f"{d_us:.2f} us, {d_n:g} device kernels per call), plain "
               f"{time_ms(lambda: kernels.match_reduce_plain(*a5)):.4f} ms, bound "
               f"{k5_bound(a5)[0] * 1e3:.3f} us [{card}]")
+    topk_large_times(dev, k2_cases, card)
     vo_stage_times(dev, seqs, card)
     vo_profile(dev, seqs, card)
     slam_profile(dev, seqs, card)
@@ -1298,6 +1478,7 @@ def main():
     paths["reduce_codes_4x"] = ("SLAM unfused", unfused_launches)
     paths["orb_select_bits"] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
     paths["realign_windows"] = ("none", {"realign_windows": 0})
+    paths["pack_row_strips"] = ("none", {"pack_row_strips": 0})
     out = []
     for k in kernels.COUNTED:
         k_ms, p_ms, l_ms, b_ms, b_by = times["eval"][k.__name__]

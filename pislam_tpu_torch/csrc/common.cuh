@@ -3,7 +3,9 @@
 //
 // Every entry point is extern "C", takes device pointers and the caller's
 // stream, launches asynchronously, allocates nothing, and returns the
-// cudaError_t of its launches (cudaGetLastError), 0 on success.
+// cudaError_t of its launches (cudaGetLastError), 0 on success. The one
+// exception, pislam_device_limits (device_limits.cu), reads the device's
+// attributes and launches nothing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +14,22 @@
 #define PISLAM_API extern "C" __attribute__((visibility("default")))
 
 constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kMaxDevices = 64;
+
+// Let a kernel use `bytes` of dynamic shared memory on the current device.
+// The attribute belongs to the device, so it is set once per device; `have`
+// is the kernel's record of what each device has been given.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, int (&have)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= have[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) have[dev] = bytes;
+  return err;
+}
 
 // float32 values of orientation.py:86-88 (256 * 60/pi-scaled polynomial)
 constexpr float kAtanC0 = 256.0f * 14.999998f;

@@ -33,18 +33,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: pointers and the stream as void*, sizes as int. Each
-# returns the cudaError_t of its launches (0 = cudaSuccess).
+# returns the cudaError_t of its launches (0 = cudaSuccess); all but
+# pislam_device_limits take the stream last.
 SIGNATURES = {
     "pislam_fused_frontend": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "pislam_topk_keys": (_P, _I, _I, _I, _P, _P, _P),
+    "pislam_topk_keys": (_P, _I, _I, _I, _I, _I, _P, _P),
     "pislam_gather_windows": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     "pislam_orb_select": (_P, _I, _P, _P, _P, _I, _P, _P, _P),
     "pislam_atan2_bins": (_P, _P, _I, _P, _P),
-    "pislam_match_reduce": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _I,
-                            _P, _P, _P, _P, _P, _P),
+    "pislam_match_reduce": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "pislam_reduce_codes": (_P, _I, _I, _P, _P),
     "pislam_orb_select_dense": (_P, _I, _P, _I, _P, _P, _P),
     "pislam_realign_windows": (_P, _P, _P, _I, _P, _P),
+    "pislam_pack_row_strips": (_P, _I, _I, _P, _P),
+    "pislam_device_limits": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
 }
 
 

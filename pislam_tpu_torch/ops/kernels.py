@@ -19,11 +19,14 @@ K1 fused_frontend_codes  csrc/fused_frontend.cu
     order, so bucketing needs no un-permute.
 K2 topk_keys             csrc/topk.cu
     Replaces ``topk_keys`` / ``_bitonic_topk_kernel`` (pallas_kernels.py:892).
-    Bound: one read of N keys per radix pass (1.4 MB at VGA) and launch
-    latency of the short passes. Design: 8-bit radix select of the k-th key
-    (shared-memory histograms, one pass per digit), warp-aggregated
-    compaction of the k survivors, then one block's bitonic sort of <= 8192
-    keys in shared memory.
+    Bound: one read of N keys (1.4 MB at VGA); what costs is latency.
+    Design: one launch of one cluster of 8 CTAs (``topk_plan``): 8-key
+    groups dealt to the CTAs in turn, read once into shared memory where
+    they fit (VGA, eval), else read from device memory by every pass;
+    8-bit radix passes with per-CTA histograms summed through distributed
+    shared memory (one cluster barrier each) until the candidates fit the
+    sort; each CTA sorts its own survivors, and a key's output place is its
+    index plus binary searches in the other CTAs' sorted lists.
 K3 gather_windows_packed csrc/gather_windows.cu
     Replaces ``pack_row_strips`` + ``realign_windows2d``
     (pallas_kernels.py:73, :145) inside ``gather_windows_packed``
@@ -44,13 +47,15 @@ K4 orb_select            csrc/orb_select.cu
     this compare.
 K5 match_reduce          csrc/match_reduce.cu
     Replaces ``match_reduce`` / ``_match_reduce_kernel`` and its gated
-    variant (pallas_kernels.py:688, :667, :673). Bound: 2*K1*K2*256 int8
-    operations at 1,979 TOP/s if computed as the TPU did (1.1 us at
-    2048 x 2048); the popcount route does 8*K1*K2 popcounts at 16 per SM
-    per clock (8 us). Bytes are negligible. Design: packed words, XOR and
-    popcount, one thread per query row over shared-memory database tiles,
-    the database split across blocks and merged with the TPU's exact rule;
-    column first-argmins by atomicMin on (distance << 16 | row) keys.
+    variant (pallas_kernels.py:688, :667, :673). Bound: 2*K1*K2*32*words
+    int8 operations at 1,979 TOP/s (1.085 us at 512 x 8192); the epilogue's
+    ~10-20 operations per pair lie above it. Design: as the TPU did, an int8
+    tensor-core product (wgmma m64n128k32) of the +-1 expansions in shared
+    memory, d = (32 words - dot) >> 1, with the row and column reductions
+    on the accumulator registers; one launch over (row tile, segment) CTAs
+    (``match_plan``), the segments merged by atomic minima that keep the
+    TPU's exact rule, outputs written by the last CTA of each row tile and
+    segment.
 K6 reduce_codes_4x       csrc/reduce_codes.cu
     Replaces ``reduce_codes_4x`` / ``_vmerge_kernel`` and ``reduce_keys_2x``
     (pallas_kernels.py:949, :917, :936): the unfused frontend's scored NMS
@@ -62,6 +67,10 @@ K4d orb_select_bits      csrc/orb_select_dense.cu
     int8 weight matrix, (K,) int32 bins, (K, 256) uint8 bits. Bound: bytes,
     the selected 256 KB slabs. Design: one block per keypoint, the window in
     shared memory, K4's atan2 bin, then only the selected slab's 256 dots.
+K3a pack_row_strips      csrc/pack_row_strips.cu
+    Replaces ``pack_row_strips`` (pallas_kernels.py:73): 4 image rows to one
+    u32 per column, in 256-column strips, K3c's input. No path runs it.
+    Bound: bytes. Design: one thread per output word, coalesced.
 K3c realign_windows      csrc/realign_windows.cu
     Replaces ``realign_windows`` / ``_realign_kernel`` (pallas_kernels.py:172,
     :92): strip rows -> packed windows. No path of the JAX package runs it.
@@ -71,6 +80,7 @@ K3c realign_windows      csrc/realign_windows.cu
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Callable, NamedTuple
 
@@ -122,6 +132,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: not contiguous")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def _call(fn_name: str, device: torch.device, *args):
     lib = _build.load()
     with torch.cuda.device(device):
@@ -129,6 +143,24 @@ def _call(fn_name: str, device: torch.device, *args):
         err = getattr(lib, fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple[int, int]:
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    err = _build.load().pislam_device_limits(index, ctypes.byref(sms), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"pislam_device_limits: CUDA error {err}")
+    return sms.value, smem.value
+
+
+def device_limits(dev: torch.device) -> tuple[int, int]:
+    """(SMs, bytes of dynamic shared memory one block can opt into) of a
+    CUDA device: what the plans of K2 and K5 are sized by."""
+    if dev.type != "cuda":
+        raise ValueError(f"device_limits: {dev} is no CUDA device")
+    _build.load()                     # raises where there is no CUDA device
+    return _device_limits(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 # ---------------------------------------------------------------------------
@@ -204,18 +236,59 @@ def topk_keys_plain(keys, k: int):
     return torch.topk(_pad_keys(keys, k), k).values
 
 
+TOPK_CLUSTER = 8            # csrc/topk.cu kCluster: CTAs of the one cluster
+TOPK_GROUP = 8              # csrc/topk.cu kGroup: keys dealt to the CTAs in turn
+TOPK_MAX_KEYS = (1 << 31) - 1 - 1024    # csrc/topk.cu indexes keys in int32
+
+
+class TopkPlan(NamedTuple):
+    """K2's launch: one cluster of ``cluster`` CTAs, each holding at most
+    ``chunk`` keys (its share of the 8-key groups) in shared memory, or none
+    (``chunk`` 0: every pass reads them from device memory); a sort of at
+    most ``cap`` survivors; ``smem`` bytes per CTA."""
+
+    cluster: int
+    chunk: int
+    cap: int
+    smem: int
+
+
+def _topk_smem(chunk: int, cap: int) -> int:
+    # keys (reused as a sort buffer) | survivors | 2 x 256 bins | 8 warp sums | state
+    return 4 * (max(chunk, cap) + cap + 2 * 256 + 8 + 8)
+
+
+def topk_plan(n: int, k: int, smem_limit: int) -> TopkPlan:
+    """The plan for the top ``k`` of ``n >= k`` keys on a device whose
+    blocks can have ``smem_limit`` bytes of shared memory. The keys stay in
+    shared memory where a CTA's share fits, else in device memory; the sort
+    takes twice the smallest power of two >= k (at most MAX_TOPK) where that
+    fits, so that the radix passes can stop early. ValueError where not even
+    the sort of k keys fits."""
+    _check_k(k)
+    if not k <= n <= TOPK_MAX_KEYS:
+        raise ValueError(f"top-k: n={n} outside [k={k}, {TOPK_MAX_KEYS}] "
+                         "(the wrapper pads short inputs)")
+    p = max(32, 1 << (k - 1).bit_length())
+    share = _cdiv(_cdiv(n, TOPK_GROUP), TOPK_CLUSTER) * TOPK_GROUP   # keys a CTA holds
+    for chunk in (share, 0):
+        for cap in (min(2 * p, MAX_TOPK), p):
+            if _topk_smem(chunk, cap) <= smem_limit:
+                return TopkPlan(TOPK_CLUSTER, chunk, cap, _topk_smem(chunk, cap))
+    raise ValueError(f"top-k: a sort of {p} keys needs {_topk_smem(0, p)} bytes of shared "
+                     f"memory per CTA, above {smem_limit}")
+
+
 @hopper_kernel(topk_keys_plain, "pislam_tpu_torch/csrc/topk.cu",
                "pislam_tpu/ops/pallas_kernels.py:892")
 def topk_keys(keys, k: int):
     _check_k(k)
     keys = _pad_keys(keys, k)
     _check(keys, "keys", torch.int32, 1, keys.device)
-    p = 1 << (k - 1).bit_length()
+    plan = topk_plan(keys.numel(), k, device_limits(keys.device)[1])
     out = torch.empty(k, dtype=torch.int32, device=keys.device)
-    # 4 histograms of 256 bins, 8 words of selection state, p sort slots
-    scratch = torch.empty(4 * 256 + 8 + p, dtype=torch.int32, device=keys.device)
-    _call("pislam_topk_keys", keys.device, keys.data_ptr(), keys.numel(), k, p,
-          out.data_ptr(), scratch.data_ptr())
+    _call("pislam_topk_keys", keys.device, keys.data_ptr(), keys.numel(), k, plan.cap,
+          plan.chunk, plan.smem, out.data_ptr())
     return out
 
 
@@ -272,19 +345,33 @@ def gather_windows_packed(img, xs, ys, valid):
 STRIP_ROWS = 9      # 4-row packs per keypoint: 36 rows cover 32 + 3
 
 
-def pack_row_strips(img):
-    """(H, W) uint8 -> (W // 128 - 1, H // 4, 256) int32, no kernel (K3a
-    stays inside K3): strip s, row r, column c holds image rows 4r..4r+3 of
-    column 128 s + c, little-endian, as a u32 bit pattern
-    (pallas_kernels.py:73)."""
-    h, w = img.shape
-    if h % 4 or w % 128 or w < 256:
+def _check_strips(h: int, w: int):
+    if h < 4 or h % 4 or w % 128 or w < 256:
         raise ValueError(f"pack_row_strips: image {h}x{w} needs H % 4 == 0, "
                          "W % 128 == 0 and W >= 256")
+
+
+def pack_row_strips_plain(img):
+    """(H, W) uint8 -> (W // 128 - 1, H // 4, 256) int32: strip s, row r,
+    column c holds image rows 4r..4r+3 of column 128 s + c, little-endian, as
+    a u32 bit pattern (pallas_kernels.py:73)."""
+    h, w = img.shape
+    _check_strips(h, w)
     b = img.to(torch.int64).reshape(h // 4, 4, w)
     words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
     strips = torch.stack([words[:, 128 * s: 128 * s + 256] for s in range(w // 128 - 1)])
     return codec.u32_to_i32(strips)
+
+
+@hopper_kernel(pack_row_strips_plain, "pislam_tpu_torch/csrc/pack_row_strips.cu",
+               "pislam_tpu/ops/pallas_kernels.py:73")
+def pack_row_strips(img):
+    h, w = img.shape
+    _check_strips(h, w)
+    _check(img, "img", torch.uint8, 2, img.device)
+    out = torch.empty((w // 128 - 1, h // 4, 256), dtype=torch.int32, device=img.device)
+    _call("pislam_pack_row_strips", img.device, img.data_ptr(), h, w, out.data_ptr())
+    return out
 
 
 def strip_window_rows(img, xs, ys, valid):
@@ -440,8 +527,8 @@ def orb_select_bits(flat, gm):
 # ---------------------------------------------------------------------------
 
 MAX_MATCH_ROWS = 1 << 16      # the column keys hold the row in 16 bits
-_MATCH_ROWS = 128             # csrc/match_reduce.cu kRows
-_MATCH_BLOCKS = 264           # two blocks per SM on a 132-SM card
+MATCH_TILE = 128              # csrc/match_reduce.cu kTileN: columns per tile
+MATCH_WG_ROWS = 64            # csrc/match_reduce.cu kWgRows: rows per warpgroup
 
 
 def match_reduce_plain(desc1, desc2, valid1, valid2, uv1=None, uv2=None,
@@ -462,20 +549,83 @@ def match_reduce_plain(desc1, desc2, valid1, valid2, uv1=None, uv2=None,
     return best, second, idx, torch.argmin(dist, dim=0).to(torch.int32)
 
 
-def _match_segments(k1: int, k2: int) -> tuple[int, int]:
-    """Database columns per block and the number of segments: enough blocks
-    to fill the card at frame size, at least 64 columns each."""
-    def cdiv(a, b):
-        return -(-a // b)
+class MatchPlan(NamedTuple):
+    """K5's launch: a grid of ``row_tiles`` x ``segments`` CTAs, each with
+    ``warpgroups`` x 64 query rows over ``tiles_per_segment`` 128-column
+    database tiles; scratch sizes in int32 words."""
 
-    nseg = max(1, min(cdiv(_MATCH_BLOCKS, cdiv(k1, _MATCH_ROWS)), cdiv(k2, 64)))
-    seg = cdiv(cdiv(k2, nseg), 32) * 32
-    return seg, cdiv(k2, seg)
+    warpgroups: int
+    row_tiles: int
+    segments: int
+    tiles_per_segment: int
+    row_words: int            # K1 merge words: (best << 32) | idx and second
+    col_keys: int             # K2 column keys, 0x7fffffff between calls
+    tickets: int              # row_tiles + segments counters, 0 between calls
+
+    @property
+    def rows(self) -> int:
+        return MATCH_WG_ROWS * self.warpgroups
+
+    @property
+    def ctas(self) -> int:
+        return self.row_tiles * self.segments
+
+
+MATCH_MAX_SEGMENT_TILES = 512     # a row key holds the column in 16 bits
+
+
+def match_plan(k1: int, k2: int, sms: int) -> MatchPlan:
+    """The plan on a device of ``sms`` SMs: two 64-row warpgroups per CTA
+    where that still gives a CTA per SM, else one; then as many database
+    segments as bring the grid to two CTAs per SM (at most one per 128-column
+    tile, at most 65536 columns each)."""
+    tiles = _cdiv(k2, MATCH_TILE)
+    nwg = 2 if k1 > MATCH_WG_ROWS and _cdiv(k1, 2 * MATCH_WG_ROWS) * tiles >= sms else 1
+    nrt = _cdiv(k1, MATCH_WG_ROWS * nwg)
+    nseg = max(min(tiles, _cdiv(2 * sms, nrt)), _cdiv(tiles, MATCH_MAX_SEGMENT_TILES))
+    tps = _cdiv(tiles, nseg)
+    nseg = _cdiv(tiles, tps)
+    return MatchPlan(nwg, nrt, nseg, tps, k1, k2, nrt + nseg)
+
+
+class _MatchState(NamedTuple):
+    rowbest: torch.Tensor     # int64, all ones: (best << 32) | idx per row
+    rowsecond: torch.Tensor   # int32, all ones (u32 max): second per row
+    colkey: torch.Tensor      # int32 0x7fffffff: least (d << 16) | row per column
+    tickets: torch.Tensor     # int32 0: CTAs done per row tile and segment
+
+
+# K5's merge state per (device, stream): set once when allocated; each launch
+# leaves it as it found it, so calls one after another need no memset. Calls
+# on two streams would share its atomics and tickets, so each stream has its
+# own; one grown on its stream frees the old tensors to that stream alone,
+# after the launches that used them.
+_MATCH_STATE: dict = {}
+
+
+def _match_state(dev: torch.device, plan: MatchPlan) -> _MatchState:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    state = _MATCH_STATE.get(key)
+    if (state is None or state.rowbest.numel() < plan.row_words
+            or state.colkey.numel() < plan.col_keys or state.tickets.numel() < plan.tickets):
+        rows = max(plan.row_words, 2048)
+        state = _MatchState(torch.full((rows,), -1, dtype=torch.int64, device=dev),
+                            torch.full((rows,), -1, dtype=torch.int32, device=dev),
+                            torch.full((max(plan.col_keys, 16384),), 0x7FFFFFFF,
+                                       dtype=torch.int32, device=dev),
+                            torch.zeros(max(plan.tickets, 1024), dtype=torch.int32, device=dev))
+        _MATCH_STATE[key] = state
+    return state
 
 
 @hopper_kernel(match_reduce_plain, "pislam_tpu_torch/csrc/match_reduce.cu",
                "pislam_tpu/ops/pallas_kernels.py:688")
 def match_reduce(desc1, desc2, valid1, valid2, uv1=None, uv2=None, radius=None):
+    """``match_reduce_plain``'s outputs from one launch of K5 on the
+    current stream. The kernel merges its CTAs through scratch state that
+    it leaves as it found it; the wrapper keeps that state per (device,
+    stream), so calls on one stream run one after another and calls on two
+    streams never share it."""
     dev = desc1.device
     _check(desc1, "desc1", torch.int32, 2, dev)
     _check(desc2, "desc2", torch.int32, 2, dev)
@@ -495,16 +645,17 @@ def match_reduce(desc1, desc2, valid1, valid2, uv1=None, uv2=None, radius=None):
         _check(uv2, "uv2", torch.float32, 2, dev)
         if uv1.shape != (k1, 2) or uv2.shape != (k2, 2):
             raise ValueError("uv1/uv2 must be (K1, 2) and (K2, 2)")
-    seg, nseg = _match_segments(k1, k2)
+    plan = match_plan(k1, k2, device_limits(dev)[0])
     best, second, idx = (torch.empty(k1, dtype=torch.int32, device=dev) for _ in range(3))
     col = torch.empty(k2, dtype=torch.int32, device=dev)
-    part = torch.empty(nseg * k1 * 3, dtype=torch.int32, device=dev)
+    state = _match_state(dev, plan)
     r2 = float(radius) * float(radius) if gated else 0.0
     _call("pislam_match_reduce", dev, desc1.data_ptr(), desc2.data_ptr(), k1, k2, words,
           valid1.view(torch.uint8).data_ptr(), valid2.view(torch.uint8).data_ptr(),
           uv1.data_ptr() if gated else None, uv2.data_ptr() if gated else None,
-          r2, int(gated), seg, nseg, best.data_ptr(), second.data_ptr(),
-          idx.data_ptr(), col.data_ptr(), part.data_ptr())
+          r2, int(gated), plan.warpgroups, plan.tiles_per_segment, plan.row_tiles,
+          plan.segments, best.data_ptr(), second.data_ptr(), idx.data_ptr(),
+          col.data_ptr(), *(t.data_ptr() for t in state))
     return best, second, idx, col
 
 
@@ -551,8 +702,9 @@ HOPPER = KernelSet(fused_frontend_codes, topk_keys, gather_windows_packed,
 PLAIN = KernelSet(fused_frontend_codes_plain, topk_keys_plain,
                   gather_windows_packed_plain, orb_select_plain,
                   match_reduce_plain, reduce_codes_4x_plain, orb_select_bits_plain)
-# Every kernel with a launch count: the path's, and K3c, which no path runs.
-COUNTED = (*HOPPER, realign_windows)
+# Every kernel with a launch count: the path's, and K3c and K3a, which no
+# path runs.
+COUNTED = (*HOPPER, realign_windows, pack_row_strips)
 
 
 def reset_launch_counts():

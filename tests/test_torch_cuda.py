@@ -70,7 +70,15 @@ def test_k1_flat_image_has_no_codes(dev, fill):
 
 @pytest.mark.parametrize("n,k,nonzero", [(354_560, 2048, 3000), (1000, 300, 500),
                                          (100, 256, 50), (9000, 8192, 3000),
-                                         (5000, 512, 0), (512, 512, 512), (70, 1, 9)])
+                                         (5000, 512, 0), (512, 512, 512), (70, 1, 9),
+                                         (8192, 8192, 5000), (8193, 8192, 8193),
+                                         (354_560, 512, 0), (354_560, 8192, 20_000),
+                                         (76_800, 512, 1500),
+                                         # KITTI's and 720p's pyramids: keys in
+                                         # device memory
+                                         (555_520, 2048, 30_000), (1_062_400, 2048, 60_000),
+                                         (1_062_400, 8192, 100_000), (1_062_400, 512, 0),
+                                         (555_520, 512, 3000)])
 def test_k2(dev, n, k, nonzero):
     rng = np.random.default_rng(n)
     keys = np.full(n, -(2**31), np.int32)
@@ -80,6 +88,33 @@ def test_k2(dev, n, k, nonzero):
         keys[nz[0]] = 2**31 - 1
     args = (t(keys).to(dev), k)
     _same(kernels.topk_keys(*args), kernels.topk_keys_plain(*args))
+
+
+@pytest.mark.parametrize("shared", [1, 2, 3])
+@pytest.mark.parametrize("n,k", [(76_800, 512), (354_560, 2048), (1_062_400, 2048)])
+def test_k2_shared_prefix(dev, n, k, shared):
+    """Survivors that share their top 1-3 bytes, so that the radix passes
+    run past the first before the candidates fit the sort."""
+    rng = np.random.default_rng(n + shared)
+    keys = np.full(n, -(2**31), np.int32)
+    nz = rng.choice(n, 3 * k, replace=False)
+    low = (1 << (32 - 8 * shared)) - 1
+    keys[nz] = (rng.integers(0, 2**31, 3 * k) & low) | (0x12345678 & ~low)
+    args = (t(keys).to(dev), k)
+    _same(kernels.topk_keys(*args), kernels.topk_keys_plain(*args))
+
+
+@pytest.mark.parametrize("n,k", [(76_800, 512), (1_062_400, 2048)])
+def test_k2_unaligned(dev, n, k):
+    """Keys that start 4 bytes past a 16-byte boundary take the scalar
+    loads, from shared memory and from device memory."""
+    rng = np.random.default_rng(n + 1)
+    keys = np.full(n + 1, -(2**31), np.int32)
+    nz = rng.choice(n + 1, 4 * k, replace=False)
+    keys[nz] = rng.integers(-2**31 + 1, 2**31 - 1, 4 * k)
+    shifted = t(keys).to(dev)[1:]
+    assert shifted.data_ptr() % 16 == 4
+    _same(kernels.topk_keys(shifted, k), kernels.topk_keys_plain(shifted, k))
 
 
 def test_k3(dev):
@@ -104,12 +139,13 @@ def test_k4_atan2_sweep(dev):
     _same(kernels.atan2_bins(m10, m01), orientation.atan2_bins(m10.cpu(), m01.cpu()))
 
 
-def _match_case(k1, k2, seed, gated):
+def _match_case(k1, k2, seed, gated, words=8):
     """Words using all 32 bits, duplicates within and across the kernel's
-    segments, invalid rows and columns; for the gate inf and 1e6 points."""
+    tiles, segments and row tiles, invalid rows and columns; for the gate inf
+    and 1e6 points."""
     rng = np.random.default_rng(seed)
-    d1 = rng.integers(0, 2**32, (k1, 8), dtype=np.uint32)
-    d2 = rng.integers(0, 2**32, (k2, 8), dtype=np.uint32)
+    d1 = rng.integers(0, 2**32, (k1, words), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (k2, words), dtype=np.uint32)
     if k1 >= 3 and k2 >= 7:
         for j in (3, k2 // 2, k2 - 1):               # ties of query row 1
             d2[j] = d1[1]
@@ -127,16 +163,34 @@ def _match_case(k1, k2, seed, gated):
     return args
 
 
-@pytest.mark.parametrize("k1,k2,gated", [(512, 512, False), (333, 2048, False),
-                                         (2048, 16384, False), (512, 16384, True),
-                                         (1, 1, False), (100, 7, True)])
-def test_k5(dev, k1, k2, gated):
-    args = _match_case(k1, k2, k1 + k2, gated)
+@pytest.mark.parametrize("k1,k2,gated,words", [
+    (512, 512, False, 8), (333, 2048, False, 8), (2048, 16384, False, 8),
+    (512, 16384, True, 8), (1, 1, False, 8), (100, 7, True, 8),
+    (512, 8192, True, 8), (499, 8192, True, 8), (65, 300, False, 8), (127, 1000, True, 8),
+    (512, 512, False, 1), (2048, 2048, False, 4), (64, 129, True, 4)])
+def test_k5(dev, k1, k2, gated, words):
+    args = _match_case(k1, k2, k1 + k2, gated, words)
     on_card = [a.to(dev) if torch.is_tensor(a) else a for a in args]
     before = kernels.match_reduce.launches
     _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*on_card))
     _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*args))
     assert kernels.match_reduce.launches == before + 2
+
+
+def test_k5_two_streams(dev):
+    """Calls on two streams at once: each stream has its own merge state."""
+    cases = [_match_case(2048, 16384, 1, False), _match_case(512, 8192, 2, True)]
+    on_card = [[a.to(dev) if torch.is_tensor(a) else a for a in c] for c in cases]
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    torch.cuda.synchronize(dev)
+    outs = []
+    for _ in range(4):
+        for stream, args in zip(streams, on_card):
+            with torch.cuda.stream(stream):
+                outs.append((args, kernels.match_reduce(*args)))
+    torch.cuda.synchronize(dev)
+    for args, out in outs:
+        _same(out, kernels.match_reduce_plain(*args))
 
 
 def test_vo_on_card_matches_cpu(dev):
@@ -174,7 +228,8 @@ def test_frontend_on_card_matches_cpu(dev):
     assert kernels.launch_counts() == {"fused_frontend_codes": 1, "topk_keys": 1,
                                        "gather_windows_packed": 1, "orb_select": 1,
                                        "match_reduce": 0, "reduce_codes_4x": 0,
-                                       "orb_select_bits": 0, "realign_windows": 0}
+                                       "orb_select_bits": 0, "realign_windows": 0,
+                                       "pack_row_strips": 0}
     _same(tuple(on_card), tuple(pislam_tpu_torch.make_extract_fn(cfg, device="cpu")(pyr)))
 
 
@@ -219,6 +274,13 @@ def test_k3c(dev):
     words = kernels.realign_windows(*kernels.strip_window_rows(img, xs, ys, valid))
     win = (words.reshape(-1, 256).view(torch.uint8) ^ 0x80).view(torch.int8)
     _same(win, kernels.gather_windows_packed(img, xs, ys, valid))
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (800, 384), (2216, 640)])
+def test_k3a(dev, shape):
+    img = t(image(*shape, 4)).to(dev)
+    _same(kernels.pack_row_strips(img), kernels.pack_row_strips_plain(img))
+    _same(kernels.pack_row_strips(img), kernels.pack_row_strips_plain(img.cpu()))
 
 
 def test_slam_on_card_matches_cpu(dev, monkeypatch):

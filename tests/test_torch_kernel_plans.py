@@ -1,0 +1,349 @@
+"""The pure-Python launch plans of K5 ``match_reduce`` and K2 ``topk_keys``,
+and the arithmetic and merge order that csrc/match_reduce.cu relies on, on
+the CPU (the kernels themselves run only on the card: test_torch_cuda.py).
+
+- ``match_plan``: every (row, column) pair lies in exactly one (row tile,
+  segment) CTA, the map shapes give at least a CTA per SM, and the scratch
+  sizes are those the kernel indexes.
+- ``topk_plan``: every key count from k up fits the shared memory it is
+  given, the keys in it (every count up to the VGA pyramid's 354,560) or in
+  device memory (the KITTI and 720p pyramids, and any larger count).
+- The kernel's reductions modelled in numpy: each thread's running row keys
+  over its columns of each tile, the quad's merge, the segments' merge by
+  atomic minima (a displaced best goes to second), and the column keys'
+  minimum over row tiles, every merge in a shuffled order, equal
+  ``match_reduce_plain`` (tolerance 0) on ties within and across tiles,
+  segments and row tiles, duplicate rows, invalid rows and columns and
+  gated-out pairs.
+- The distance identity (32 words - (+-1 dot)) >> 1 == Hamming, with the
+  kernel's bit-to-byte expansion, for 1..8 words.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pislam_tpu_torch import PyramidConfig
+from pislam_tpu_torch import matching as tm
+from pislam_tpu_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+K1S = [1, 13, 64, 65, 512, 2048, 65536]
+K2S = [1, 300, 512, 8192, 16384, 200_000]
+# an H100 SXM: its SMs and the dynamic shared memory a block can opt into
+# (what kernels.device_limits reads from the card)
+H100_SMS = 132
+H100_SMEM = 232_448
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# K5: the plan
+# ---------------------------------------------------------------------------
+
+def _spans(n, size, count):
+    return [(i * size, min(n, (i + 1) * size)) for i in range(count)]
+
+
+def _check_match_plan(k1, k2, sms):
+    plan = kernels.match_plan(k1, k2, sms)
+    assert plan.warpgroups in (1, 2) and (plan.warpgroups == 1 or k1 > 64)
+    row_spans = _spans(k1, plan.rows, plan.row_tiles)
+    seg = plan.tiles_per_segment * kernels.MATCH_TILE
+    col_spans = _spans(k2, seg, plan.segments)
+    # every row tile and segment is non-empty, and together they tile the
+    # rows and the columns exactly once
+    for spans, n in ((row_spans, k1), (col_spans, k2)):
+        assert all(lo < hi for lo, hi in spans)
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert plan.ctas == plan.row_tiles * plan.segments <= 65535 * 65535
+    assert plan.segments <= 65535 and plan.row_tiles <= 65535
+    # merge state: words per row, a key per column, a ticket per row tile
+    # and per segment; a row key holds the column within its segment in 16
+    # bits
+    assert plan.row_words == k1
+    assert plan.col_keys == k2
+    assert plan.tickets == plan.row_tiles + plan.segments
+    assert seg <= 1 << 16
+    if (k1, k2) in ((512, 8192), (2048, 16384)):
+        assert plan.ctas >= sms
+    return plan
+
+
+@pytest.mark.parametrize("k1,k2", [(k1, k2) for k1 in K1S for k2 in K2S]
+                         + [(2048, 2048), (65536, 70), (300, 64)])
+def test_match_plan_covers_every_pair_once(k1, k2):
+    _check_match_plan(k1, k2, H100_SMS)
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_match_plan_fills_the_card(sms):
+    """On cards of other SM counts (an H100 PCIe has 114) the plan still
+    tiles every pair, and gives a CTA per SM wherever the database has a
+    128-column tile for each."""
+    for k1, k2 in ((512, 8192), (2048, 16384), (512, 512), (13, 300)):
+        plan = _check_match_plan(k1, k2, sms)
+        assert plan.ctas >= sms or plan.segments == kernels._cdiv(k2, kernels.MATCH_TILE)
+
+
+# ---------------------------------------------------------------------------
+# K2: the plan
+# ---------------------------------------------------------------------------
+
+def _pyramid_keys(w, h):
+    """K2's key count at the default config's pyramid of a w x h frame: one
+    key per 2x2 block of the stacked pyramid (K1's code grid)."""
+    pc = PyramidConfig(base_width=w, base_height=h)
+    return kernels._cdiv(pc.padded_height, 2) * kernels._cdiv(pc.stride, 2)
+
+
+VGA_KEYS = 354_560
+MAX_CODE_KEYS = 2048 * 2048     # K1's codes hold 12-bit coordinates: 4096 x 4096 pixels
+
+
+def _check_topk_plan(n, k, plan, smem_limit):
+    p = max(32, 1 << (k - 1).bit_length())
+    share = kernels._cdiv(kernels._cdiv(n, kernels.TOPK_GROUP),
+                          kernels.TOPK_CLUSTER) * kernels.TOPK_GROUP
+    cap = plan.cap
+    assert plan.cluster == kernels.TOPK_CLUSTER
+    # the sort's capacity: a power of two from max(k, 32) to twice that, at
+    # most 8192 (8 keys a thread on 1024 threads), the larger where it fits
+    assert cap in (p, 2 * p) and cap <= kernels.MAX_TOPK
+    if plan.chunk:
+        # each CTA holds its share of the 8-key groups in shared memory
+        assert plan.chunk == share and plan.chunk * plan.cluster >= n
+    else:
+        # the keys stay in device memory only where even the least sort's
+        # shares do not fit beside them
+        assert 4 * (max(share, p) + p + 2 * 256 + 16) > smem_limit
+    assert plan.smem == 4 * (max(plan.chunk, cap) + cap + 2 * 256 + 16) <= smem_limit
+    if cap == p and p < kernels.MAX_TOPK:
+        assert 4 * (max(plan.chunk, 2 * p) + 2 * p + 2 * 256 + 16) > smem_limit
+
+
+@pytest.mark.parametrize("k", [1, 512, 2048, 8192])
+def test_topk_plan_fits_or_raises(k):
+    """Every n from k to VGA's keys (each one), around where the keys leave
+    shared memory, and on to the most keys K1's codes give (a sample) and
+    the int32 limit: a plan that fits, the keys in shared memory up to VGA;
+    ValueError for n < k, n past the limit, or a card too small for the
+    sort."""
+    boundary = None
+    for n in range(k, VGA_KEYS + 1):
+        plan = kernels.topk_plan(n, k, H100_SMEM)
+        _check_topk_plan(n, k, plan, H100_SMEM)
+        assert plan.chunk                            # VGA and the eval pyramid
+    for n in range(VGA_KEYS, MAX_CODE_KEYS + 1, 101):
+        plan = kernels.topk_plan(n, k, H100_SMEM)
+        _check_topk_plan(n, k, plan, H100_SMEM)
+        if boundary is None and not plan.chunk:
+            boundary = n
+    assert boundary is not None
+    for n in range(boundary - 2000, boundary + 2000):    # every n where it changes
+        _check_topk_plan(n, k, kernels.topk_plan(n, k, H100_SMEM), H100_SMEM)
+    _check_topk_plan(kernels.TOPK_MAX_KEYS, k,
+                     kernels.topk_plan(kernels.TOPK_MAX_KEYS, k, H100_SMEM), H100_SMEM)
+    for n, limit in ((k - 1, H100_SMEM), (kernels.TOPK_MAX_KEYS + 1, H100_SMEM),
+                     (max(k, 1000), 4 * (32 + 32 + 2 * 256 + 16) - 1)):
+        if n >= 1:
+            with pytest.raises(ValueError):
+                kernels.topk_plan(n, k, limit)
+
+
+@pytest.mark.parametrize("frame,n,resident", [
+    ((640, 480), VGA_KEYS, True), ((384, 256), None, True),
+    ((1241, 376), 555_520, False), ((1280, 720), 1_062_400, False)])
+@pytest.mark.parametrize("k", [512, 2048, 8192])
+def test_topk_plan_pyramids(frame, n, resident, k):
+    """The default config's pyramids of a VGA, a KITTI (1241x376) and a 720p
+    frame, and of a 384x256 one: VGA's and 384x256's keys stay in shared
+    memory, KITTI's and 720p's in device memory; each plan fits an H100's
+    blocks and blocks of less shared memory (99 KB)."""
+    got = _pyramid_keys(*frame)
+    assert n is None or got == n
+    for limit in (H100_SMEM, 101_376):
+        plan = kernels.topk_plan(got, k, limit)
+        _check_topk_plan(got, k, plan, limit)
+        if limit == H100_SMEM:
+            assert bool(plan.chunk) == resident
+
+
+# ---------------------------------------------------------------------------
+# K5: the kernel's arithmetic and merge order, modelled
+# ---------------------------------------------------------------------------
+
+def _expand_like_kernel(d):
+    """(K, W) u32 words -> (K, 32 W) int8 +-1 bytes, as csrc/match_reduce.cu
+    expand4 builds them: 4 bits at a time, byte j = bit j ? -1 : +1."""
+    out = np.empty((d.shape[0], d.shape[1] * 8), np.uint32)
+    for nib in range(8):
+        n = (d >> np.uint32(4 * nib)) & np.uint32(0xF)
+        out[:, nib::8] = (np.uint32(0x01010101)
+                          + ((n * np.uint32(0x00204081)) & np.uint32(0x01010101))
+                          * np.uint32(0xFE))
+    return out.view(np.int8).reshape(d.shape[0], d.shape[1] * 32)
+
+
+@pytest.mark.parametrize("words", range(1, 9))
+def test_pm1_dot_gives_hamming(words):
+    rng = np.random.default_rng(words)
+    d1 = rng.integers(0, 2**32, (40, words), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (70, words), dtype=np.uint32)
+    d2[3] = d1[5]                                   # distance 0
+    d2[4] = ~d1[6]                                  # distance 32 words
+    a, b = _expand_like_kernel(d1), _expand_like_kernel(d2)
+    assert set(np.unique(a)) <= {-1, 1}
+    dot = a.astype(np.int32) @ b.astype(np.int32).T
+    got = (32 * words - dot) >> 1
+    want = np.unpackbits((d1[:, None, :] ^ d2[None, :, :]).view(np.uint8),
+                         axis=-1).sum(-1)
+    assert np.array_equal(got, want)
+    assert got[5, 3] == 0 and got[6, 4] == 32 * words
+    # and the port's own plain distances
+    assert np.array_equal(tm.hamming_matrix(t(d1.view(np.int32)),
+                                            t(d2.view(np.int32))).numpy(), want)
+
+
+def _key_rule(keys, cols):
+    """A thread's running row keys over its columns in increasing order:
+    best = min(best, key), second = min(second, max(best, key)), keys
+    (d << 16) | (column - segment start), from (MAX << 16, MAX << 16)."""
+    k1 = keys.shape[0]
+    bk = np.full(k1, tm.MAX_DIST << 16, np.int64)
+    sk = bk.copy()
+    for j in cols:
+        sk = np.minimum(sk, np.maximum(bk, keys[:, j]))
+        bk = np.minimum(bk, keys[:, j])
+    return bk, sk
+
+
+def _key_merge(a, b):
+    """The quad's merge on the same keys (csrc/match_reduce.cu
+    key_merge_lanes)."""
+    (ba, sa), (bb, sb) = a, b
+    return np.minimum(ba, bb), np.minimum(np.minimum(sa, sb), np.maximum(ba, bb))
+
+
+def kernel_model(case, seed):
+    """csrc/match_reduce.cu's reductions in numpy, every merge in a shuffled
+    order. Per segment and lane class q (the columns 8i + 2q + {0, 1} of
+    each tile, which one thread holds) the running row keys; the four
+    classes merged as the quad merges them; each segment's (best, second,
+    idx) then put into the row's merge words as the atomics do (merge_row:
+    the 64-bit min of (best << 32) | idx, and the value it displaces and
+    the segment's second into the min of second); column keys
+    (d << 16) | row reduced per row tile, then over row tiles."""
+    rng = np.random.default_rng(seed)
+    d1, d2, v1, v2 = case["d1"], case["d2"], case["v1"], case["v2"]
+    k1, k2, words = d1.shape[0], d2.shape[0], d1.shape[1]
+    dot = (_expand_like_kernel(d1).astype(np.int32)
+           @ _expand_like_kernel(d2).astype(np.int32).T)
+    dist = ((32 * words - dot) >> 1).astype(np.int64)
+    ok = np.broadcast_to(v2[None, :], dist.shape).copy()
+    if "radius" in case:
+        uv1, uv2 = case["uv1"], case["uv2"]
+        with np.errstate(invalid="ignore", over="ignore"):   # inf - inf, 1e6**2
+            dx = uv1[:, None, 0] - uv2[None, :, 0]
+            dy = uv1[:, None, 1] - uv2[None, :, 1]
+            ok &= dx * dx + dy * dy <= np.float32(case["radius"] * case["radius"])
+    # the row keys see the column penalties and the gate; an invalid row's
+    # triple is set when the segment ends
+    dist = np.where(ok, dist, tm.MAX_DIST)
+
+    plan = kernels.match_plan(k1, k2, H100_SMS)
+    seg = plan.tiles_per_segment * kernels.MATCH_TILE
+    best_word = np.full(k1, 2**64 - 1, np.uint64)
+    second_word = np.full(k1, 2**32 - 1, np.uint64)
+    segments = []
+    for lo, hi in _spans(k2, seg, plan.segments):
+        keys = (dist[:, lo:hi] << 16) | np.arange(hi - lo)[None, :]
+        parts = [_key_rule(keys, [c for c in range(hi - lo) if c % 8 // 2 == q])
+                 for q in range(4)]
+        order = rng.permutation(4)
+        bk, sk = parts[order[0]]
+        for i in order[1:]:
+            bk, sk = _key_merge((bk, sk), parts[i])
+        best = np.where(v1, bk >> 16, tm.MAX_DIST)
+        second = np.where(v1, sk >> 16, tm.MAX_DIST)
+        idx = lo + np.where(v1, bk & 0xFFFF, 0)
+        segments.append((best, second, idx))
+    for i in rng.permutation(len(segments)):
+        best, second, idx = segments[i]
+        mine = (best.astype(np.uint64) << np.uint64(32)) | idx.astype(np.uint64)
+        old = best_word
+        best_word = np.minimum(old, mine)
+        loser = np.maximum(old, mine) >> np.uint64(32)
+        second_word = np.minimum(second_word, np.minimum(loser, second.astype(np.uint64)))
+
+    dist = np.where(v1[:, None], dist, tm.MAX_DIST)
+    keys = (dist << 16) | np.arange(k1)[:, None]
+    tile_min = [keys[lo:hi].min(0) for lo, hi in _spans(k1, plan.rows, plan.row_tiles)]
+    col = np.full(k2, 0x7FFFFFFF)
+    for i in rng.permutation(len(tile_min)):
+        col = np.minimum(col, tile_min[i])
+    return ((best_word >> np.uint64(32)).astype(np.int64), second_word.astype(np.int64),
+            (best_word & np.uint64(0xFFFFFFFF)).astype(np.int64), col & 0xFFFF)
+
+
+def _model_case(seed, k1, k2, words=8, gated=False):
+    """Ties within a tile, across tiles, across segments and across row
+    tiles; duplicate query rows; invalid rows and columns; for the gate a
+    perfect match outside it, inf and 1e6 points and a pair on the radius."""
+    rng = np.random.default_rng(seed)
+    d1 = rng.integers(0, 2**32, (k1, words), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (k2, words), dtype=np.uint32)
+    plan = kernels.match_plan(k1, k2, H100_SMS)
+    seg = plan.tiles_per_segment * kernels.MATCH_TILE
+    ties = [2, 9, 130 % k2, (seg + 1) % k2, k2 - 1]
+    d2[ties] = d1[1]                             # row 1 ties in tiles and segments
+    d2[20] = d1[4] ^ np.uint32(1)
+    d2[(seg + 20) % k2] = d1[4]                  # a later segment beats an earlier one
+    d1[k1 - 1] = d1[1]                           # duplicate rows, also in another
+    d1[min(plan.rows, k1 - 1)] = d1[1]           # row tile where there is one
+    v1, v2 = rng.random(k1) < 0.85, rng.random(k2) < 0.85
+    v1[[1, 4, k1 - 1, min(plan.rows, k1 - 1)]] = True
+    v2[ties + [20, (seg + 20) % k2]] = True
+    v2[33] = False
+    v1[7] = False
+    case = {"d1": d1, "d2": d2, "v1": v1, "v2": v2, "ties": sorted(set(ties))}
+    if gated:
+        uv1 = rng.uniform(-0.1, 0.1, (k1, 2)).astype(np.float32)
+        uv2 = rng.uniform(-0.1, 0.1, (k2, 2)).astype(np.float32)
+        uv2[ties] = uv1[1]
+        uv2[9] = uv1[1] + np.float32([0.3, 0.0])  # a perfect match gated out
+        case["ties"] = sorted(set(ties) - {9})
+        uv2[40], uv2[41], uv1[11] = 1e6, np.inf, np.inf
+        uv1[12] = uv2[12] + np.float32([0.06, 0.0])   # on the radius
+        case.update(uv1=uv1, uv2=uv2, radius=0.06)
+    return case
+
+
+def _plain(case):
+    args = [t(case["d1"].view(np.int32)), t(case["d2"].view(np.int32)), t(case["v1"]),
+            t(case["v2"])]
+    if "radius" in case:
+        args += [t(case["uv1"]), t(case["uv2"]), case["radius"]]
+    return [o.numpy() for o in kernels.match_reduce_plain(*args)]
+
+
+@pytest.mark.parametrize("k1,k2,words,gated", [
+    (200, 700, 8, False), (200, 700, 8, True), (130, 300, 4, False),
+    (65, 513, 1, True), (64, 129, 8, False), (300, 1000, 8, True),
+    (300, 700, 8, False), (130, 2000, 8, True), (20, 70, 8, False)])
+def test_kernel_merge_model_equals_plain(k1, k2, words, gated):
+    case = _model_case(k1 * 7 + k2 + words, k1, k2, words, gated)
+    want = _plain(case)
+    for seed in range(3):                        # three shuffled merge orders
+        got = kernel_model(case, seed)
+        for name, g, w in zip(("best", "second", "idx", "col_argmin"), got, want):
+            assert np.array_equal(g, w), (name, seed)
+    # the case exercises what it claims: row 1 ties in several columns and
+    # segments, and an all-invalid row keeps (MAX, MAX, 0)
+    assert want[0][1] == 0 and want[2][1] == case["ties"][0] and want[1][1] == 0
+    assert want[0][7] == want[1][7] == tm.MAX_DIST and want[2][7] == 0

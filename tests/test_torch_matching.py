@@ -4,10 +4,8 @@
 - ``match_reduce_plain`` against ``pk.match_reduce`` in Mosaic interpret
   mode, ungated and gated, with the duplicate, cross-tile and on-the-radius
   cases of tests/test_pallas_kernels.py (smaller database tiles, so the
-  interpreter stays quick);
-- the Hopper kernel's own algorithm (the sequential row rule, the ordered
-  segment merge and the packed column keys of csrc/match_reduce.cu),
-  emulated in numpy at the segment sizes the wrapper picks;
+  interpreter stays quick); tests/test_torch_kernel_plans.py holds the
+  Hopper kernel's own reductions, modelled in numpy, to it;
 - ``match``, ``match_gated``, ``match_many`` and ``match_features`` against
   the JAX functions on the CPU, on random words and on real features.
 
@@ -124,61 +122,6 @@ def test_match_reduce_all_invalid_column_and_row():
     assert int(best[0]) == int(second[0]) == tm.MAX_DIST and int(idx[0]) == 0
     assert int(col[7]) == 0
     assert_reduce_equal((best, second, idx, col), jax_reduce(c))
-
-
-def emulate_kernel(d1, d2, v1, v2, uv1=None, uv2=None, radius=None):
-    """csrc/match_reduce.cu's algorithm in numpy: per segment the sequential
-    row rule from (MAX, MAX, first column), segments merged in order, and
-    the column minimum of (d << 16 | row) keys."""
-    k1, k2 = len(d1), len(d2)
-    x = np.bitwise_xor(d1[:, None, :], d2[None, :, :])
-    d = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1).astype(np.int64)
-    d[~v1] = tm.MAX_DIST
-    d[:, ~v2] = tm.MAX_DIST
-    if radius is not None:
-        with np.errstate(invalid="ignore", over="ignore"):   # inf - inf, 1e6**2
-            dx = uv1[:, None, 0] - uv2[None, :, 0]
-            dy = uv1[:, None, 1] - uv2[None, :, 1]
-            inside = dx * dx + dy * dy <= np.float32(radius * radius)
-        d[~inside] = tm.MAX_DIST
-    seg, nseg = kernels._match_segments(k1, k2)
-    parts = []
-    for s in range(nseg):
-        lo, hi = s * seg, min(k2, (s + 1) * seg)
-        best = np.full(k1, tm.MAX_DIST)
-        second = np.full(k1, tm.MAX_DIST)
-        idx = np.full(k1, lo)
-        for j in range(lo, hi):
-            dj = d[:, j]
-            lt = dj < best
-            second = np.where(lt, best, np.where(dj < second, dj, second))
-            idx = np.where(lt, j, idx)
-            best = np.where(lt, dj, best)
-        parts.append((best, second, idx))
-    best, second, idx = parts[0]
-    for b, s, i in parts[1:]:
-        second = np.minimum(np.minimum(second, s), np.maximum(best, b))
-        idx = np.where(b < best, i, idx)
-        best = np.minimum(best, b)
-    keys = (d << 16) | np.arange(k1)[:, None]
-    return best, second, idx, keys.min(0) & 0xFFFF
-
-
-@pytest.mark.parametrize("k1,k2,gated", [(300, 700, False), (130, 2000, True), (20, 70, False)])
-def test_kernel_algorithm_emulated(k1, k2, gated):
-    c = reduce_case(k1 + k2, k1, k2, tile=128, gated=gated)
-    keys = ("d1", "d2", "v1", "v2") + (("uv1", "uv2", "radius") if gated else ())
-    got = emulate_kernel(*(c[k] for k in keys))
-    want = kernels.match_reduce_plain(*port_args(c))
-    for g, w in zip(got, want):
-        assert np.array_equal(g, w.numpy())
-
-
-@pytest.mark.parametrize("k1,k2", [(512, 512), (2048, 2048), (2048, 16384), (512, 16384),
-                                   (1, 1), (65536, 70), (300, 64)])
-def test_match_segments_cover_the_database(k1, k2):
-    seg, nseg = kernels._match_segments(k1, k2)
-    assert seg % 32 == 0 and (nseg - 1) * seg < k2 <= nseg * seg
 
 
 def test_expand_and_hamming_matrix():
