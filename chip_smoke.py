@@ -16,7 +16,8 @@ prints no result line):
    plain PyTorch versions on the card, bit-exact, at the extraction shapes
    (VGA 8-level pyramid with 2048 keypoints, and the eval config's 4-level
    384x256 pyramid with 512), including invalid and edge keypoints and an
-   atan2 sweep; K2 also on fewer survivors than k, n = k, n = k + 1, every
+   atan2 sweep; K1 under the tile its plan picks and under each of its two
+   tiles (32x64, 16x32) forced; K2 also on fewer survivors than k, n = k, n = k + 1, every
    key INT32_MIN, survivors sharing their top byte and k = 8192 over VGA's
    keys; K6 on the unfused
    frontend's scored grid (its top-k gives K1's keypoints), K4d at K and
@@ -29,13 +30,15 @@ prints no result line):
    across tiles, segments and row tiles, and again with K1 - 13; then
    K1 = 65 and 127, K2 no multiple of the 128-column tile, and 1 and 4
    descriptor words; K5 on two streams at once, each its own merge state.
-   K2 also at the default config's pyramids of a KITTI (1241x376: 555,520
-   keys) and a 720p frame (1,062,400 keys), whose keys stay in device
-   memory, at k = 512, 2048 and 8192, and timed there.
+   K1 and K2 also at the default config's pyramids of a KITTI (1241x376:
+   555,520 keys) and a 720p frame (1,062,400 keys), K1 under each tile, K2,
+   whose keys stay in device memory, at k = 512, 2048 and 8192; both timed
+   there.
 4. extraction path: 48 frames of data/eval_seq.npz at the eval config and 8
    seeded VGA frames at the default config, each frame -> build_pyramid ->
    make_extract_fn(cfg, "cuda"), compared frame by frame with the plain path
-   on the card, the first 4 of each also with the plain path on the CPU;
+   on the card (K1 also under each tile forced, after the path's counts are
+   read), the first 4 of each also with the plain path on the CPU;
    K1-K4's launch counts must reach the number of frames. Then, each a path
    of its own, the same frames with fused_upstream=False (K6) and with
    brief_variant="dense" (K4d), bit-exact against the default path, and
@@ -59,7 +62,8 @@ prints no result line):
    the same keyframes, K6 once per frame.
 7. times from CUDA events (median of 30 after warm-up) and host clocks
    ending in a synchronize, device time and device kernels per call from
-   torch.profiler, SLAM stage times, torch.profiler windows over 20 VO and
+   torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
+   plan's tile and under each tile forced), SLAM stage times, torch.profiler windows over 20 VO and
    20 SLAM frames, and which operations make the host wait; the card's name
    and power limit on every line.
 
@@ -257,6 +261,50 @@ def features_equal(a, b) -> bool:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def k1_plans(shape):
+    """K1's plan at an image shape, then the plan of each tile forced."""
+    from pislam_tpu_torch.ops import kernels
+
+    sms = kernels.device_limits(torch.device("cuda", 0))[0]
+    return [kernels.frontend_plan(*shape, sms)] + [
+        kernels.frontend_plan(*shape, sms, tile) for tile in kernels.FRONTEND_TILES]
+
+
+def k1_check(label, args1):
+    """K1 under the plan's tile and under each tile, bit-exact against its
+    plain version. Returns the plan's codes and max |error|."""
+    from pislam_tpu_torch.ops import kernels
+
+    want = kernels.fused_frontend_codes_plain(*args1)
+    grid = kernels.fused_frontend_codes(*args1)
+    err = require_equal(f"K1 {label}", grid, want)
+    for plan in k1_plans(args1[0].shape)[1:]:
+        err = max(err, require_equal(f"K1 {label} tile {plan.th}x{plan.tw}",
+                                     kernels.fused_frontend_codes(*args1, plan=plan), want))
+    return grid, err
+
+
+def k1_times(cases, card):
+    """K1's device time at each pyramid under the plan's tile and under each
+    tile forced, beside its bound (the formula of kernel_phase's rows)."""
+    from pislam_tpu_torch.ops import kernels
+
+    for label, args1 in cases.items():
+        (h, w), n_px = args1[0].shape, args1[0].numel()
+        b_ms, b_by = bound_ms(2 * n_px + (h + 1) // 2 * ((w + 1) // 2) * 4,
+                              K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S)
+        plans = k1_plans(args1[0].shape)
+        for i, plan in enumerate(plans):
+            kw = {} if i == 0 else {"plan": plan}
+            d_us, d_n = device_us(lambda: kernels.fused_frontend_codes(*args1, **kw))
+            how = "plan's choice" if i == 0 else "forced"
+            print(f"time kernel fused_frontend_codes at {label} ({tuple(args1[0].shape)}) "
+                  f"tile {plan.th}x{plan.tw} ({how}, {plan.ctas} CTAs): "
+                  f"{time_ms(lambda: kernels.fused_frontend_codes(*args1, **kw)):.4f} ms "
+                  f"(device {d_us:.2f} us, {d_n:g} device kernels per call), bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by}) [{card}]")
+
+
 def kernel_phase(dev, pyramids, cfgs):
     """K1-K4 against their plain versions on the card. Returns per-kernel
     max |error|, and per config each kernel's time, plain time, library
@@ -276,9 +324,8 @@ def kernel_phase(dev, pyramids, cfgs):
         h, w = pyr.shape
 
         args1 = (pyr, mask, fc.fast_threshold, fc.harris_threshold)
-        grid = kernels.fused_frontend_codes(*args1)
-        errs["fused_frontend_codes"] = max(errs["fused_frontend_codes"], require_equal(
-            f"K1 {label}", grid, kernels.fused_frontend_codes_plain(*args1)))
+        grid, err = k1_check(label, args1)
+        errs["fused_frontend_codes"] = max(errs["fused_frontend_codes"], err)
 
         keys = (grid.reshape(-1) ^ nms.INT32_MIN).contiguous()
         k = fc.max_keypoints
@@ -395,7 +442,9 @@ def kernel_phase(dev, pyramids, cfgs):
     require_equal("K4 atan2 sweep (card plain)", bins, orientation.atan2_bins(m10, m01))
     require_equal("K4 atan2 sweep (CPU plain)", bins.cpu(),
                   orientation.atan2_bins(m10.cpu(), m01.cpu()))
-    print(f"phase kernels: ok, K1-K4 (K2 also at n=k, n=k+1, all INT32_MIN, a shared top "
+    print(f"phase kernels: ok, K1 (the plan's tile and each of {kernels.FRONTEND_TILES}), "
+          f"K2-K4 (K2 "
+          f"also at n=k, n=k+1, all INT32_MIN, a shared top "
           f"byte, k=8192), K6, K4d (K and 2048 keypoints, also against K4), K3c (2048 "
           f"keypoints, also against K3's bytes) and K3a bit-exact (tolerance 0) on VGA and "
           f"eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
@@ -569,23 +618,26 @@ K2_FRAMES = {"kitti": (1241, 376), "720p": (1280, 720)}
 
 
 def topk_large_phase(dev):
-    """K2 at the default config's pyramids of KITTI and 720p frames (K1's
-    keys of a seeded random frame), bit-exact against its plain version at
-    k = 512, 2048 (the default) and 8192, and with fewer survivors than k.
-    Returns max |error| and, per frame, the keys, the default k and the
-    pyramid's shape, for the times of phase 7."""
+    """K1 and K2 at the default config's pyramids of KITTI and 720p frames
+    (a seeded random frame): K1 under the plan's tile and each tile, K2 on
+    K1's keys at k = 512, 2048 (the default) and 8192, and with fewer
+    survivors than k, each bit-exact against its plain version. Returns K1's
+    and K2's max |error| and, per frame, K1's inputs and K2's keys, default
+    k and pyramid shape, for the times of phase 7."""
     import pislam_tpu_torch as pt
     from pislam_tpu_torch.ops import kernels, nms
     from pislam_tpu_torch.ops.pyramid import build_pyramid
 
-    err, cases = 0, {}
+    err, k1_err, cases, k1_cases = 0, 0, {}, {}
     for label, (w, h) in K2_FRAMES.items():
         cfg = pt.PislamConfig(pyramid=pt.PyramidConfig(base_width=w, base_height=h))
         fc = cfg.frontend
         frame = np.random.default_rng(w).integers(0, 256, (h, w), np.uint8)
         pyr = build_pyramid(torch.from_numpy(frame).to(dev), cfg.pyramid)
         mask = pt.make_extract_fn(cfg, dev).level_mask.view(torch.uint8)
-        grid = kernels.fused_frontend_codes(pyr, mask, fc.fast_threshold, fc.harris_threshold)
+        k1_cases[label] = (pyr, mask, fc.fast_threshold, fc.harris_threshold)
+        grid, e1 = k1_check(label, k1_cases[label])
+        k1_err = max(k1_err, e1)
         keys = (grid.reshape(-1) ^ nms.INT32_MIN).contiguous()
         k = fc.max_keypoints
         few = keys.clone()
@@ -596,9 +648,10 @@ def topk_large_phase(dev):
             err = max(err, require_equal(f"K2 {label} {name}", kernels.topk_keys(kk, kn),
                                          kernels.topk_keys_plain(kk, kn)))
         cases[label] = (keys, k, tuple(pyr.shape))
-    print(f"phase kernels: ok, K2 bit-exact (tolerance 0) at the {' and '.join(K2_FRAMES)} "
-          f"pyramids, k = 512, 2048, 8192 and fewer survivors than k")
-    return err, cases
+    print(f"phase kernels: ok, K1 (the plan's tile and each of {kernels.FRONTEND_TILES}) and "
+          f"K2 bit-exact (tolerance 0) at the {' and '.join(K2_FRAMES)} pyramids, K2 at "
+          f"k = 512, 2048, 8192 and fewer survivors than k")
+    return err, k1_err, cases, k1_cases
 
 
 def topk_large_times(dev, cases, card):
@@ -670,9 +723,12 @@ def extraction_path(dev, frames, cfgs):
     for label, cfg in cfgs.items():
         counts = []
         cpu_extract = pt.make_extract_fn(cfg, "cpu")
+        fc = cfg.frontend
+        mask = extract[label].level_mask.view(torch.uint8)
         for i, (pyr, feats) in enumerate(results[label]):
             if not features_equal(feats, plain[label](pyr)):
                 raise AssertionError(f"{label} frame {i}: kernels != plain path on card")
+            k1_check(f"{label} frame {i}", (pyr, mask, fc.fast_threshold, fc.harris_threshold))
             if i < CPU_FRAMES:
                 cpu_pyr = build_pyramid(frames[label][i], cfg.pyramid)
                 if not torch.equal(cpu_pyr, pyr.cpu()):
@@ -688,7 +744,8 @@ def extraction_path(dev, frames, cfgs):
         if min(counts) == 0:
             raise AssertionError(f"{label}: a frame gave no features")
         print(f"phase extraction path {label}: {len(counts)} frames bit-exact vs plain "
-              f"(card), first {CPU_FRAMES} vs plain (CPU); features per frame "
+              f"(card; K1 also under each tile), first {CPU_FRAMES} vs plain (CPU); "
+              f"features per frame "
               f"min {min(counts)} mean {statistics.mean(counts):.1f} max {max(counts)}")
     print(f"phase extraction path launches: {json.dumps(launches)}")
     return extract, results
@@ -1415,8 +1472,9 @@ def main():
     pairs = [odo.frontend(frames["eval"][i]) for i in (0, 1)]
     errs["match_reduce"], k5_cases = k5_phase(dev, [f for f, _ in pairs], feats0["vga"],
                                               [p for _, p in pairs])
-    k2_err, k2_cases = topk_large_phase(dev)
+    k2_err, k1_err, k2_cases, k1_cases = topk_large_phase(dev)
     errs["topk_keys"] = max(errs["topk_keys"], k2_err)
+    errs["fused_frontend_codes"] = max(errs["fused_frontend_codes"], k1_err)
 
     # phase 4: the extraction path, and the frontend's other configurations
     extract, results = extraction_path(dev, frames, cfgs)
@@ -1467,6 +1525,8 @@ def main():
               f"{time_ms(lambda: kernels.match_reduce_plain(*a5)):.4f} ms, bound "
               f"{k5_bound(a5)[0] * 1e3:.3f} us [{card}]")
     topk_large_times(dev, k2_cases, card)
+    k1_times({**{label: rows[label]["fused_frontend_codes"][0] for label in cfgs}, **k1_cases},
+             card)
     vo_stage_times(dev, seqs, card)
     vo_profile(dev, seqs, card)
     slam_profile(dev, seqs, card)

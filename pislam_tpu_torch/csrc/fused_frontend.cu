@@ -10,7 +10,10 @@
 // -3..+4 around a pixel, NMS one more score on each side), so the block
 // stages an (TH+9) x (TW+9) image region in shared memory, then derivative,
 // window-sum and score planes, each in shared memory: nothing but the codes
-// reaches device memory. Reads outside the image clamp to the edge; the
+// reaches device memory. The tile is a template parameter, built at 32x64
+// (about 47 KB of static shared memory, fewest halo pixels) and 16x32 (about
+// 15 KB, four times the blocks): kernels.frontend_plan picks the one whose
+// grid fills the card. Both are even, so no 2x2 code block straddles tiles. Reads outside the image clamp to the edge; the
 // level mask zeroes every score within 16 px of an image edge, so clamped
 // values never reach a surviving code.
 //
@@ -22,14 +25,6 @@
 
 namespace {
 
-constexpr int TH = 32;        // pixel rows per tile
-constexpr int TW = 64;        // pixel cols per tile
-constexpr int IH = TH + 9;    // image rows [y0-4, y0+TH+5)
-constexpr int IW = TW + 9;
-constexpr int DH = TH + 7;    // dx/dy rows [y0-3, y0+TH+4)
-constexpr int DW = TW + 7;
-constexpr int SH = TH + 2;    // score rows [y0-1, y0+TH+1)
-constexpr int SW = TW + 2;
 constexpr int NT = 256;
 
 // FAST ring offsets (dy, dx), circular order (pislam_tpu/ops/fast.py:RING)
@@ -47,11 +42,19 @@ __device__ __forceinline__ bool has_run9(uint32_t bits) {
   return (r & 0xffffu) != 0;
 }
 
+template <int TH, int TW>
 __global__ void __launch_bounds__(NT)
 fused_frontend_kernel(const uint8_t* __restrict__ img,
                       const uint8_t* __restrict__ mask,
                       int32_t* __restrict__ out, int h, int w, int fast_t,
                       int harris_t) {
+  static_assert(TH % 2 == 0 && TW % 2 == 0, "2x2 code blocks must not straddle tiles");
+  constexpr int IH = TH + 9;    // image rows [y0-4, y0+TH+5)
+  constexpr int IW = TW + 9;
+  constexpr int DH = TH + 7;    // dx/dy rows [y0-3, y0+TH+4)
+  constexpr int DW = TW + 7;
+  constexpr int SH = TH + 2;    // score rows [y0-1, y0+TH+1)
+  constexpr int SW = TW + 2;
   __shared__ uint8_t s_img[IH][IW];
   __shared__ int16_t s_dx[DH][DW];
   __shared__ int16_t s_dy[DH][DW];
@@ -59,6 +62,8 @@ fused_frontend_kernel(const uint8_t* __restrict__ img,
   __shared__ int32_t s_hyy[DH][SW];
   __shared__ int32_t s_hxy[DH][SW];
   __shared__ uint8_t s_score[SH][SW];
+  static_assert(IH * IW + 4 * DH * DW + 12 * DH * SW + SH * SW <= 48 * 1024,
+                "static shared memory above 48 KB");
 
   const int tid = threadIdx.x;
   const int y0 = blockIdx.y * TH;
@@ -173,13 +178,26 @@ fused_frontend_kernel(const uint8_t* __restrict__ img,
   }
 }
 
+template <int TH, int TW>
+cudaError_t launch(const uint8_t* img, const uint8_t* mask, int32_t* out, int h,
+                   int w, int fast_t, int harris_t, cudaStream_t stream) {
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+  fused_frontend_kernel<TH, TW><<<grid, NT, 0, stream>>>(img, mask, out, h, w,
+                                                         fast_t, harris_t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// (th, tw): the tile, 32x64 or 16x32 (kernels.FRONTEND_TILES); any other
+// gives cudaErrorInvalidValue.
 PISLAM_API int pislam_fused_frontend(const uint8_t* img, const uint8_t* mask,
                                      int32_t* out, int h, int w, int fast_t,
-                                     int harris_t, cudaStream_t stream) {
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-  fused_frontend_kernel<<<grid, NT, 0, stream>>>(img, mask, out, h, w, fast_t,
-                                                 harris_t);
-  return (int)cudaGetLastError();
+                                     int harris_t, int th, int tw,
+                                     cudaStream_t stream) {
+  if (th == 32 && tw == 64)
+    return (int)launch<32, 64>(img, mask, out, h, w, fast_t, harris_t, stream);
+  if (th == 16 && tw == 32)
+    return (int)launch<16, 32>(img, mask, out, h, w, fast_t, harris_t, stream);
+  return (int)cudaErrorInvalidValue;
 }

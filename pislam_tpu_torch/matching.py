@@ -3,9 +3,10 @@
 The port of ``pislam_tpu/matching.py``. Descriptors are (K, words) int32
 tensors holding the u32 words' bit patterns (``Features.descriptors``). On
 a CUDA tensor ``match`` and ``match_gated`` reduce the distances with the
-K5 Hopper kernel (``ops/kernels.match_reduce``, XOR + popcount over the
-packed words), so the (K1, K2) matrix never exists; on the CPU they take its
-plain version, the dense matrix below. Both give the JAX package's values:
+K5 Hopper kernel (``ops/kernels.match_reduce``, ``csrc/match_reduce.cu``: an
+int8 ``wgmma`` tensor-core product of the descriptors' +-1 expansions, the
+Hamming distance (32 words - dot) >> 1), so the (K1, K2) matrix never
+exists; on the CPU they take its plain version, the dense matrix below. Both give the JAX package's values:
 first-occurrence argmins, a duplicate of the best counting as second,
 invalid slots at ``MAX_DIST``, the Lowe ratio test in float32 and the
 mutual cross-check through the column argmin.

@@ -36,7 +36,7 @@ _F = ctypes.c_float
 # returns the cudaError_t of its launches (0 = cudaSuccess); all but
 # pislam_device_limits take the stream last.
 SIGNATURES = {
-    "pislam_fused_frontend": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pislam_fused_frontend": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pislam_topk_keys": (_P, _I, _I, _I, _I, _I, _P, _P),
     "pislam_gather_windows": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     "pislam_orb_select": (_P, _I, _P, _P, _P, _I, _P, _P, _P),

@@ -12,11 +12,13 @@ K1 fused_frontend_codes  csrc/fused_frontend.cu
     Bound: about 40 integer operations per pixel on 1.4 MB of image and
     mask (VGA pyramid), so neither bytes nor operations are large; the
     score chain (6x6 window sums of products) is the work. Design: one
-    pass, one 32x64 pixel tile per block, staged through shared memory
-    with a 4-before / 5-after halo, so no intermediate reaches device
-    memory; out-of-image reads clamp (the level mask zeroes every score
-    within 16 px of an edge). Codes come out in true row and column
-    order, so bucketing needs no un-permute.
+    pass, one pixel tile per block, staged through shared memory with a
+    4-before / 5-after halo, so no intermediate reaches device memory;
+    out-of-image reads clamp (the level mask zeroes every score within 16
+    px of an edge). The tile is 32x64 or 16x32 (``frontend_plan``): the
+    smaller one where the larger gives too few blocks to fill the card.
+    Codes come out in true row and column order, so bucketing needs no
+    un-permute.
 K2 topk_keys             csrc/topk.cu
     Replaces ``topk_keys`` / ``_bitonic_topk_kernel`` (pallas_kernels.py:892).
     Bound: one read of N keys (1.4 MB at VGA); what costs is latency.
@@ -106,12 +108,14 @@ class HopperKernel:
         self.replaces = replaces
         self.launches = 0
 
-    def __call__(self, x: torch.Tensor, *args):
+    def __call__(self, x: torch.Tensor, *args, **launch_options):
+        # launch options (K1's plan) choose how the kernel runs, not what it
+        # computes, so the plain version takes none
         if x.device.type == "cpu":
             return self.plain(x, *args)
         if x.device.type != "cuda":
             raise ValueError(f"{self.__name__}: no kernel for device {x.device}")
-        out = self.launch(x, *args)
+        out = self.launch(x, *args, **launch_options)
         self.launches += 1
         return out
 
@@ -156,7 +160,7 @@ def _device_limits(index: int) -> tuple[int, int]:
 
 def device_limits(dev: torch.device) -> tuple[int, int]:
     """(SMs, bytes of dynamic shared memory one block can opt into) of a
-    CUDA device: what the plans of K2 and K5 are sized by."""
+    CUDA device: what the plans of K1, K2 and K5 are sized by."""
     if dev.type != "cuda":
         raise ValueError(f"device_limits: {dev} is no CUDA device")
     _build.load()                     # raises where there is no CUDA device
@@ -197,19 +201,55 @@ def _check_code_size(h: int, w: int):
         raise ValueError(f"image {h}x{w}: codes hold 12-bit coordinates")
 
 
+# csrc/fused_frontend.cu's tiles, (rows, cols), the larger first
+FRONTEND_TILES = ((32, 64), (16, 32))
+# the larger tile wherever its grid gives at least this many blocks per SM
+FRONTEND_CTAS_PER_SM = 4
+
+
+class FrontendPlan(NamedTuple):
+    """K1's launch: ``th`` x ``tw`` pixel tiles, one block each, ``ctas``
+    blocks."""
+
+    th: int
+    tw: int
+    ctas: int
+
+
+def frontend_plan(h: int, w: int, sms: int, tile: tuple[int, int] | None = None
+                  ) -> FrontendPlan:
+    """The plan for an (h, w) image on a device of ``sms`` SMs: the larger
+    tile where its grid gives at least FRONTEND_CTAS_PER_SM blocks per SM,
+    else the smaller, whose four times as many blocks fill the card where
+    the larger would leave most SMs idle after one block. ``tile`` forces
+    one of FRONTEND_TILES (the tests and chip_smoke.py run both)."""
+    if tile is None:
+        th, tw = FRONTEND_TILES[0]
+        if _cdiv(h, th) * _cdiv(w, tw) < FRONTEND_CTAS_PER_SM * sms:
+            th, tw = FRONTEND_TILES[1]
+    elif tuple(tile) in FRONTEND_TILES:
+        th, tw = tile
+    else:
+        raise ValueError(f"K1: tile {tile} is not one of {FRONTEND_TILES}")
+    return FrontendPlan(th, tw, _cdiv(h, th) * _cdiv(w, tw))
+
+
 @hopper_kernel(fused_frontend_codes_plain, "pislam_tpu_torch/csrc/fused_frontend.cu",
                "pislam_tpu/ops/pallas_kernels.py:387")
-def fused_frontend_codes(img, mask, fast_t: int, harris_t: int):
+def fused_frontend_codes(img, mask, fast_t: int, harris_t: int, *,
+                         plan: FrontendPlan | None = None):
     h, w = img.shape
     _check_code_size(h, w)
     _check(img, "img", torch.uint8, 2, img.device)
     _check(mask, "mask", torch.uint8, 2, img.device)
     if mask.shape != img.shape:
         raise ValueError(f"mask {tuple(mask.shape)} != image {tuple(img.shape)}")
+    if plan is None:
+        plan = frontend_plan(h, w, device_limits(img.device)[0])
     out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=torch.int32,
                       device=img.device)
     _call("pislam_fused_frontend", img.device, img.data_ptr(), mask.data_ptr(),
-          out.data_ptr(), h, w, int(fast_t), int(harris_t))
+          out.data_ptr(), h, w, int(fast_t), int(harris_t), plan.th, plan.tw)
     return out
 
 

@@ -50,15 +50,60 @@ def _same(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
 
 
-@pytest.mark.parametrize("shape", [(64, 256), (61, 77), (800, 384)])
-def test_k1(dev, shape):
+# K1 under the plan's tile and under each tile forced
+K1_TILES = [pytest.param(None, id="plan"),
+            *(pytest.param(tile, id=f"{tile[0]}x{tile[1]}") for tile in kernels.FRONTEND_TILES)]
+
+
+def _k1(dev, args, tile):
+    """K1's codes under ``tile`` (None: the plan's choice), held bit-exact to
+    the plain version."""
+    h, w = args[0].shape
+    plan = None if tile is None else kernels.frontend_plan(
+        h, w, kernels.device_limits(dev)[0], tile)
+    got = kernels.fused_frontend_codes(*args, plan=plan)
+    _same(got, kernels.fused_frontend_codes_plain(*args))
+    return got
+
+
+def _k1_mask(shape, dev):
+    # the plain version wraps at the edges where the kernel clamps; both
+    # agree wherever the mask keeps 5 px from an edge (the level mask keeps 16)
+    border = 16 if min(shape) >= 40 else 8
+    mask = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    mask[border:-border, border:-border] = 1
+    return mask
+
+
+@pytest.mark.parametrize("tile", K1_TILES)
+@pytest.mark.parametrize("shape", [(64, 256), (61, 77), (800, 384), (15, 31), (17, 33),
+                                   (33, 65), (100, 130), (2216, 640)])
+def test_k1(dev, shape, tile):
     img = t(np.kron(image(shape[0] // 4 + 1, shape[1] // 4 + 1, 1),
                     np.ones((4, 4), np.uint8))[:shape[0], :shape[1]]).to(dev)
-    img[:20] = t(image(20, shape[1], 2)).to(dev)       # noise border
-    mask = torch.zeros(shape, dtype=torch.uint8, device=dev)
-    mask[16:-16, 16:-16] = 1
-    args = (img, mask, 10, 1 << 8)
-    _same(kernels.fused_frontend_codes(*args), kernels.fused_frontend_codes_plain(*args))
+    img[:20] = t(image(min(20, shape[0]), shape[1], 2)).to(dev)       # noise border
+    _k1(dev, (img, _k1_mask(shape, dev), 10, 1 << 8), tile)
+
+
+@pytest.mark.parametrize("tile", K1_TILES)
+@pytest.mark.parametrize("shape", [(100, 130), (800, 384)])
+def test_k1_every_fast_corner_scores(dev, shape, tile):
+    """harris_t = INT32_MIN: every FAST corner the mask keeps scores."""
+    img = t(image(*shape, 3)).to(dev)
+    got = _k1(dev, (img, _k1_mask(shape, dev), 10, -(2**31)), tile)
+    assert got.count_nonzero() > 0
+
+
+@pytest.mark.parametrize("tile", K1_TILES)
+@pytest.mark.parametrize("cell", [1, 2, 3])
+@pytest.mark.parametrize("harris_t", [0, -(2**31)])
+def test_k1_checkerboard(dev, cell, harris_t, tile):
+    """A 0/255 checkerboard: gradients at their extremes, so Harris's uint32
+    products and determinant wrap."""
+    shape = (100, 130)
+    r, c = np.indices(shape)
+    img = t((((r // cell + c // cell) % 2) * 255).astype(np.uint8)).to(dev)
+    _k1(dev, (img, _k1_mask(shape, dev), 20, harris_t), tile)
 
 
 @pytest.mark.parametrize("fill", [0, 255])

@@ -1,7 +1,12 @@
-"""The pure-Python launch plans of K5 ``match_reduce`` and K2 ``topk_keys``,
-and the arithmetic and merge order that csrc/match_reduce.cu relies on, on
-the CPU (the kernels themselves run only on the card: test_torch_cuda.py).
+"""The pure-Python launch plans of K1 ``fused_frontend_codes``, K5
+``match_reduce`` and K2 ``topk_keys``, and the arithmetic and merge order
+that csrc/match_reduce.cu relies on, on the CPU (the kernels themselves run
+only on the card: test_torch_cuda.py).
 
+- ``frontend_plan``: its grid of tiles covers every pixel and every 2x2
+  code block exactly once, the tile is one of the two the kernel is built
+  for, and the larger tile is taken where its grid gives at least 4 blocks
+  per SM.
 - ``match_plan``: every (row, column) pair lies in exactly one (row tile,
   segment) CTA, the map shapes give at least a CTA per SM, and the scratch
   sizes are those the kernel indexes.
@@ -39,6 +44,82 @@ H100_SMEM = 232_448
 
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# K1: the plan
+# ---------------------------------------------------------------------------
+
+# the default config's stacked pyramids (padded_height, stride): the eval
+# config's 384x256 frame (4 levels), VGA, KITTI (1241x376) and 720p
+PYRAMIDS = {"eval": (800, 384), "vga": (2216, 640), "kitti": (1736, 1280),
+            "720p": (3320, 1280)}
+K1_SHAPES = [(1, 1), (2, 2), (15, 31), (16, 32), (17, 33), (31, 63), (32, 64),
+             (33, 65), (61, 77), (100, 130), (1600, 640), (4096, 4096),
+             *PYRAMIDS.values()]
+
+
+def _cover(n, size, count):
+    """How often each of n positions lies in one of ``count`` spans of
+    ``size``, and that none of the spans is empty."""
+    hits = np.zeros(n, np.int64)
+    for i in range(count):
+        assert i * size < n
+        hits[i * size:(i + 1) * size] += 1
+    return hits
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
+@pytest.mark.parametrize("tile", [None, *kernels.FRONTEND_TILES])
+@pytest.mark.parametrize("sms", [114, 132])
+def test_frontend_plan_covers_every_pixel(shape, tile, sms):
+    """Every pixel in exactly one tile and every code (2x2 block) written
+    by exactly one, at odd shapes, shapes below a tile and the pyramids, for
+    the plan's choice and each forced tile."""
+    h, w = shape
+    plan = kernels.frontend_plan(h, w, sms, tile)
+    assert (plan.th, plan.tw) in kernels.FRONTEND_TILES
+    assert plan.th % 2 == 0 and plan.tw % 2 == 0
+    if tile is not None:
+        assert (plan.th, plan.tw) == tile
+    rows, cols = kernels._cdiv(h, plan.th), kernels._cdiv(w, plan.tw)
+    assert plan.ctas == rows * cols
+    assert (_cover(h, plan.th, rows) == 1).all() and (_cover(w, plan.tw, cols) == 1).all()
+    # a block writes codes (y0/2 + r, x0/2 + c) for r < th/2, c < tw/2 that
+    # lie in the (ceil(h/2), ceil(w/2)) grid
+    assert (_cover(-(-h // 2), plan.th // 2, rows) == 1).all()
+    assert (_cover(-(-w // 2), plan.tw // 2, cols) == 1).all()
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_frontend_plan_fills_the_card(sms):
+    """The larger tile exactly where its grid gives 4 blocks per SM: on an
+    H100 SXM (132 SMs) 16x32 at the eval pyramid, 32x64 at VGA, KITTI and
+    720p; a 1600x640 image takes 32x64 on 114 SMs (an H100 PCIe) but not
+    on 132."""
+    for h, w in K1_SHAPES:
+        plan = kernels.frontend_plan(h, w, sms)
+        big = kernels._cdiv(h, 32) * kernels._cdiv(w, 64)
+        assert (plan.th, plan.tw) == ((32, 64) if big >= 4 * sms else (16, 32))
+        assert plan.ctas >= min(big, 4 * sms)
+    assert kernels.frontend_plan(*PYRAMIDS["eval"], sms)[:2] == (16, 32)
+    for name in ("vga", "kitti", "720p"):
+        assert kernels.frontend_plan(*PYRAMIDS[name], sms)[:2] == (32, 64)
+    assert kernels.frontend_plan(1600, 640, sms)[:2] == ((32, 64) if sms == 114 else (16, 32))
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (32, 32), (15, 32)])
+def test_frontend_plan_rejects_unbuilt_tiles(tile):
+    with pytest.raises(ValueError):
+        kernels.frontend_plan(800, 384, 132, tile)
+
+
+def test_frontend_pyramid_shapes():
+    """PYRAMIDS are the default config's (eval: 384x256, 4 levels)."""
+    for name, (w, h, levels) in {"eval": (384, 256, 4), "vga": (640, 480, 8),
+                                 "kitti": (1241, 376, 8), "720p": (1280, 720, 8)}.items():
+        pc = PyramidConfig(base_width=w, base_height=h, num_levels=levels)
+        assert (pc.padded_height, pc.stride) == PYRAMIDS[name]
 
 
 # ---------------------------------------------------------------------------
