@@ -10,12 +10,16 @@
 // -3..+4 around a pixel, NMS one more score on each side), so the block
 // stages an (TH+9) x (TW+9) image region in shared memory, then derivative,
 // window-sum and score planes, each in shared memory: nothing but the codes
-// reaches device memory. The tile is a template parameter, built at 32x64
-// (about 47 KB of static shared memory, fewest halo pixels) and 16x32 (about
-// 15 KB, four times the blocks): kernels.frontend_plan picks the one whose
-// grid fills the card. Both are even, so no 2x2 code block straddles tiles. Reads outside the image clamp to the edge; the
+// reaches device memory. Reads outside the image clamp to the edge; the
 // level mask zeroes every score within 16 px of an image edge, so clamped
-// values never reach a surviving code.
+// values never reach a surviving code. The score phase runs FAST's ring and
+// Harris only on the pixels that the mask keeps and that pass FAST's compass
+// pretest, gathered into a list per block, so no warp pays for the rest.
+//
+// The tile is a template parameter, built at 32x64 (about 47 KB of static
+// shared memory, the fewest halo pixels) and 16x32 (about 15 KB, four times
+// the blocks): kernels.frontend_plan picks the one whose grid fills the
+// card. Both are even, so no 2x2 code block straddles two tiles.
 //
 // Exactness: Harris runs in uint32_t with wrap (det and trace^2), Ixy is an
 // arithmetic shift, the score converts to float with round-to-nearest
@@ -62,12 +66,14 @@ fused_frontend_kernel(const uint8_t* __restrict__ img,
   __shared__ int32_t s_hyy[DH][SW];
   __shared__ int32_t s_hxy[DH][SW];
   __shared__ uint8_t s_score[SH][SW];
+  __shared__ int s_ncand;                 // pixels in the score phase's list
   static_assert(IH * IW + 4 * DH * DW + 12 * DH * SW + SH * SW <= 48 * 1024,
                 "static shared memory above 48 KB");
 
   const int tid = threadIdx.x;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
+  if (tid == 0) s_ncand = 0;
 
   // image region, local (0, 0) = image (y0-4, x0-4), clamped at the edges
   for (int i = tid; i < IH * IW; i += NT) {
@@ -110,41 +116,73 @@ fused_frontend_kernel(const uint8_t* __restrict__ img,
   }
   __syncthreads();
 
-  // score = FAST corner & Harris > threshold & level mask ? quarter float : 0
-  for (int i = tid; i < SH * SW; i += NT) {
-    const int sr = i / SW, sc = i % SW;
-    const int gy = y0 - 1 + sr, gx = x0 - 1 + sc;
-    uint8_t score = 0;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w && mask[(size_t)gy * w + gx]) {
-      int sxx = 0, syy = 0, sxy = 0;
-#pragma unroll
-      for (int v = 0; v < 6; ++v) {
-        sxx += s_hxx[sr + v][sc];
-        syy += s_hyy[sr + v][sc];
-        sxy += s_hxy[sr + v][sc];
-      }
-      const uint32_t ixx = (uint32_t)(sxx >> 4);
-      const uint32_t iyy = (uint32_t)(syy >> 4);
-      const uint32_t ixy = (uint32_t)(sxy >> 4);   // arithmetic shift first
-      const uint32_t trace = ixx + iyy;
-      const uint32_t trace2 = (trace * trace) >> 4;
-      const uint32_t det = ixx * iyy - ixy * ixy;
-      const int32_t hs = (int32_t)(det - trace2);
-
-      const int ir = sr + 3, ic = sc + 3;          // image-local position
-      const int c = s_img[ir][ic];
-      uint32_t dark = 0, light = 0;
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const int s = s_img[ir + kRingDy[p]][ic + kRingDx[p]];
-        dark |= (uint32_t)(s < c - fast_t) << p;
-        light |= (uint32_t)(s > c + fast_t) << p;
-      }
-      if ((has_run9(dark) || has_run9(light)) && hs > harris_t) {
-        score = (uint8_t)((__float_as_uint(__int2float_rn(hs)) >> 20) & 0xffu);
+  // score = FAST corner & Harris > threshold & level mask ? quarter float : 0.
+  // Pass 1 zeroes every score and lists the pixels that the mask keeps and
+  // whose compass points pass FAST's pretest; pass 2 runs the 16-sample test
+  // on the listed pixels alone, and Harris's window sums on its corners.
+  // Pretest: 9 consecutive ring samples hold two cyclically adjacent ones of
+  // ring points 1, 5, 9, 13, so a pixel without such a pair, dark or light,
+  // is no corner. The list lives in s_dx, which the window sums have used up.
+  int16_t* s_cand = &s_dx[0][0];
+  static_assert(DH * DW >= SH * SW, "candidate list outgrows s_dx");
+  const int lane = tid & 31;
+  for (int base = 0; base < SH * SW; base += NT) {     // uniform: whole warps
+    const int i = base + tid;
+    bool cand = false;
+    if (i < SH * SW) {
+      const int sr = i / SW, sc = i % SW;
+      const int gy = y0 - 1 + sr, gx = x0 - 1 + sc;
+      s_score[sr][sc] = 0;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < w && mask[(size_t)gy * w + gx]) {
+        const int ir = sr + 3, ic = sc + 3;        // image-local position
+        const int c = s_img[ir][ic];
+        const int p1 = s_img[ir - 3][ic], p5 = s_img[ir][ic + 3];
+        const int p9 = s_img[ir + 3][ic], p13 = s_img[ir][ic - 3];
+        const uint32_t dark = (uint32_t)(p1 < c - fast_t) | (uint32_t)(p5 < c - fast_t) << 1 |
+                              (uint32_t)(p9 < c - fast_t) << 2 | (uint32_t)(p13 < c - fast_t) << 3;
+        const uint32_t light = (uint32_t)(p1 > c + fast_t) | (uint32_t)(p5 > c + fast_t) << 1 |
+                               (uint32_t)(p9 > c + fast_t) << 2 | (uint32_t)(p13 > c + fast_t) << 3;
+        cand = ((dark & (dark >> 1 | dark << 3)) | (light & (light >> 1 | light << 3))) & 0xfu;
       }
     }
-    s_score[sr][sc] = score;
+    const unsigned ballot = __ballot_sync(0xffffffffu, cand);
+    int first = 0;
+    if (lane == 0 && ballot) first = atomicAdd(&s_ncand, __popc(ballot));
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (cand) s_cand[first + __popc(ballot & ((1u << lane) - 1u))] = (int16_t)i;
+  }
+  __syncthreads();
+
+  const int ncand = s_ncand;
+  for (int k = tid; k < ncand; k += NT) {
+    const int sr = s_cand[k] / SW, sc = s_cand[k] % SW;
+    const int ir = sr + 3, ic = sc + 3;
+    const int c = s_img[ir][ic];
+    uint32_t dark = 0, light = 0;
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const int s = s_img[ir + kRingDy[p]][ic + kRingDx[p]];
+      dark |= (uint32_t)(s < c - fast_t) << p;
+      light |= (uint32_t)(s > c + fast_t) << p;
+    }
+    if (!has_run9(dark) && !has_run9(light)) continue;
+    int sxx = 0, syy = 0, sxy = 0;
+#pragma unroll
+    for (int v = 0; v < 6; ++v) {
+      sxx += s_hxx[sr + v][sc];
+      syy += s_hyy[sr + v][sc];
+      sxy += s_hxy[sr + v][sc];
+    }
+    const uint32_t ixx = (uint32_t)(sxx >> 4);
+    const uint32_t iyy = (uint32_t)(syy >> 4);
+    const uint32_t ixy = (uint32_t)(sxy >> 4);     // arithmetic shift first
+    const uint32_t trace = ixx + iyy;
+    const uint32_t trace2 = (trace * trace) >> 4;
+    const uint32_t det = ixx * iyy - ixy * ixy;
+    const int32_t hs = (int32_t)(det - trace2);
+    if (hs > harris_t) {
+      s_score[sr][sc] = (uint8_t)((__float_as_uint(__int2float_rn(hs)) >> 20) & 0xffu);
+    }
   }
   __syncthreads();
 

@@ -17,8 +17,9 @@ K1 fused_frontend_codes  csrc/fused_frontend.cu
     out-of-image reads clamp (the level mask zeroes every score within 16
     px of an edge). The tile is 32x64 or 16x32 (``frontend_plan``): the
     smaller one where the larger gives too few blocks to fill the card.
-    Codes come out in true row and column order, so bucketing needs no
-    un-permute.
+    FAST's ring and Harris run only on the pixels that the mask keeps and
+    that pass FAST's exact compass pretest, listed per block. Codes come out
+    in true row and column order, so bucketing needs no un-permute.
 K2 topk_keys             csrc/topk.cu
     Replaces ``topk_keys`` / ``_bitonic_topk_kernel`` (pallas_kernels.py:892).
     Bound: one read of N keys (1.4 MB at VGA); what costs is latency.
