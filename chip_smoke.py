@@ -8,15 +8,17 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: nvcc compiles the nine Hopper kernels from pislam_tpu_torch/csrc,
-   one process per source, all at once; the build's seconds, each kernel's
-   registers and shared memory, and the count of IGMMA (int8 wgmma)
-   instructions in the library's SASS.
-3. kernels: K1-K4, K4's atan2 bins, K6, K4d, K3c and K3a against their
-   plain PyTorch versions on the card, bit-exact, at the extraction shapes
-   (VGA 8-level pyramid with 2048 keypoints, and the eval config's 4-level
-   384x256 pyramid with 512), including invalid and edge keypoints and an
-   atan2 sweep; K1 under the tile its plan picks and under each of its two
+2. build: nvcc compiles the ten Hopper kernels from the eleven .cu sources
+   of pislam_tpu_torch/csrc, one process per source, all at once; the
+   build's seconds, each kernel's registers and shared memory, and the count
+   of IGMMA (int8 wgmma) instructions in the library's SASS.
+3. kernels: K1-K4, orb_describe (K3 + K4 in one launch), K4's atan2 bins,
+   K6, K4d, K3c and K3a against their plain PyTorch versions on the card,
+   bit-exact, at the extraction shapes (VGA 8-level pyramid with 2048
+   keypoints, and the eval config's 4-level 384x256 pyramid with 512),
+   including invalid and edge keypoints and an atan2 sweep; orb_describe
+   also with every keypoint invalid, code 0, K = 1 and 8, 4 and 1 words;
+   K1 under the tile its plan picks and under each of its two
    tiles (32x64, 16x32) forced; K2 also on fewer survivors than k, n = k, n = k + 1, every
    key INT32_MIN, survivors sharing their top byte and k = 8192 over VGA's
    keys; K6 on the unfused
@@ -29,7 +31,8 @@ prints no result line):
    16384), each with invalid rows and columns, duplicated descriptors, ties
    across tiles, segments and row tiles, and again with K1 - 13; then
    K1 = 65 and 127, K2 no multiple of the 128-column tile, and 1 and 4
-   descriptor words; K5 on two streams at once, each its own merge state.
+   descriptor words; K5 on two streams at once, each its own merge state;
+   K5 at K1 = 65,537 and 70,000 x K2 = 2048 (two launches, merged).
    K1 and K2 also at the default config's pyramids of a KITTI (1241x376:
    555,520 keys) and a 720p frame (1,062,400 keys), K1 under each tile, K2,
    whose keys stay in device memory, at k = 512, 2048 and 8192; both timed
@@ -38,11 +41,12 @@ prints no result line):
    seeded VGA frames at the default config, each frame -> build_pyramid ->
    make_extract_fn(cfg, "cuda"), compared frame by frame with the plain path
    on the card (K1 also under each tile forced, after the path's counts are
-   read), the first 4 of each also with the plain path on the CPU;
-   K1-K4's launch counts must reach the number of frames. Then, each a path
-   of its own, the same frames with fused_upstream=False (K6) and with
-   brief_variant="dense" (K4d), bit-exact against the default path, and
-   with odd-border bucketing (K6) against its own plain path.
+   read), the first 4 of each also with the plain path on the CPU; K1, K2
+   and orb_describe launch once per frame, K3 and K4 never. Then, each a
+   path of its own with exact launch counts, the same frames with
+   fused_upstream=False (K6, orb_describe) and with brief_variant="dense"
+   (K3 then K4d), bit-exact against the default path, and with odd-border
+   bucketing (K6) against its own plain path.
 5. VO path: make_vo_scan(vo_config(), device="cuda") over the four
    data/eval_seq*.npz sequences (416 frames); each sequence's ATE must lie
    within 0.005 of the JAX package's (EVAL_r05.json vo_ate_rmse); every
@@ -63,7 +67,10 @@ prints no result line):
 7. times from CUDA events (median of 30 after warm-up) and host clocks
    ending in a synchronize, device time and device kernels per call from
    torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
-   plan's tile and under each tile forced), SLAM stage times, torch.profiler windows over 20 VO and
+   plan's tile and under each tile forced; orb_describe against the
+   composition it replaced, decode + K3 + K4 + masks, in turns old, new,
+   new, old, alone and inside the extraction), SLAM stage times,
+   torch.profiler windows over 20 VO and
    20 SLAM frames, and which operations make the host wait; the card's name
    and power limit on every line.
 
@@ -114,9 +121,10 @@ SCALAR_OPS_S = 67e12
 # ring loads and 32 compares and the arc test, Harris's gradients, products,
 # 6x6 window sums and score, the 3x3 NMS, the encode and the 2x2 max.
 K1_OPS_PER_PIXEL = 100
-# the kernels of the default (fused, sorted BRIEF) frontend's VO and SLAM paths
-FUSED_PATH_KERNELS = ("fused_frontend_codes", "topk_keys", "gather_windows_packed",
-                      "orb_select", "match_reduce")
+# the kernels of the default (fused, sorted BRIEF) frontend's VO and SLAM paths;
+# K3 and K4 run there inside orb_describe, and alone on no path of it
+FUSED_PATH_KERNELS = ("fused_frontend_codes", "topk_keys", "orb_describe", "match_reduce")
+UNUSED_ON_SORTED_PATH = ("gather_windows_packed", "orb_select")
 # The JAX package's KeyframeSLAM on the CPU at slam_config over each committed
 # sequence, seeds 7, 0, 1 and 2 of its PRNG key (slam_reference_range.py): per
 # ATE (per-frame SLAM, keyframes before and after close_loop) the lowest and
@@ -150,10 +158,10 @@ BA_ERR_FACTOR = 10.0
 BA_ERR_FLOOR = 1e-6
 BA_BACKWARD_TOL = 1e-5
 SLAM_PROFILE_FRAMES = 20
-# the __global__ functions of K1-K5 (the VO path's), as the profiler names them
+# the __global__ functions of the VO path's kernels, as the profiler names them
 HOPPER_KERNEL_FUNCTIONS = (
-    "fused_frontend_kernel", "topk_cluster_kernel", "gather_windows_kernel",
-    "orb_select_kernel", "match_wgmma_kernel")
+    "fused_frontend_kernel", "topk_cluster_kernel", "orb_describe_kernel",
+    "match_wgmma_kernel")
 
 
 def eval_config():
@@ -306,7 +314,8 @@ def k1_times(cases, card):
 
 
 def kernel_phase(dev, pyramids, cfgs):
-    """K1-K4 against their plain versions on the card. Returns per-kernel
+    """K1-K4, orb_describe, K6, K4d, K3c and K3a against their plain
+    versions on the card. Returns per-kernel
     max |error|, and per config each kernel's time, plain time, library
     time and bound, with the inputs K5's cases are built from."""
     import pislam_tpu_torch as pt
@@ -374,6 +383,30 @@ def kernel_phase(dev, pyramids, cfgs):
                                      require_equal(f"K4 {label} words={words}", desc, pdesc))
         flat = flat[:k]
 
+        # orb_describe on the path's codes and the edge keypoints as codes
+        # (coordinates wrap to 12 bits, as a code holds them), every keypoint
+        # invalid, code 0 valid and not, K = 1; 8, 4 and 1 words
+        ecodes = (7 << 24) | ((ex.long() & 0xFFF) << 12) | (ey.long() & 0xFFF)
+        dcodes, dvalid = torch.cat([codes, ecodes]), torch.cat([valid, ev])
+        for name, (c, v) in {
+                "path": (dcodes, dvalid), "all invalid": (dcodes, torch.zeros_like(dvalid)),
+                "K=1": (dcodes[:1], dvalid[:1]),
+                "code 0": (torch.zeros(3, dtype=torch.int64, device=dev),
+                           torch.tensor([True, False, True], device=dev))}.items():
+            for words in (fc.words, 4, 1):
+                args = (pyr, c, v, *tables, words)
+                got, want = kernels.orb_describe(*args), kernels.orb_describe_plain(*args)
+                errs["orb_describe"] = max(
+                    errs["orb_describe"],
+                    require_equal(f"orb_describe {label} {name} words={words} angles",
+                                  got[0], want[0]),
+                    require_equal(f"orb_describe {label} {name} words={words}", got[1], want[1]))
+        fd = feats[label]
+        require_equal(f"orb_describe {label} vs the extraction's", torch.cat(
+            [a.reshape(k, -1).to(torch.int32) for a in kernels.orb_describe(
+                pyr, codes, valid, *tables, fc.words)], 1),
+            torch.cat([fd.angles[:, None].to(torch.int32), fd.descriptors], 1))
+
         # K6 on the unfused frontend's scored grid of the same pyramid
         scored = unfused_scored(pyr, extractor.level_mask, fc)
         red = kernels.reduce_codes_4x(scored)
@@ -435,6 +468,8 @@ def kernel_phase(dev, pyramids, cfgs):
             # the image in, every strip's words out
             "pack_row_strips": ((pyr,), None, bound_ms(
                 n_px + strips.numel() * 4, 0, SCALAR_OPS_S)),
+            "orb_describe": ((pyr, codes, valid, *tables, fc.words), None,
+                             describe_bound(pyr, codes, valid, fd.angles, fc.words)),
         }
 
     m10, m01 = (torch.as_tensor(m, device=dev) for m in orientation.sweep_moments())
@@ -449,6 +484,71 @@ def kernel_phase(dev, pyramids, cfgs):
           f"keypoints, also against K3's bytes) and K3a bit-exact (tolerance 0) on VGA and "
           f"eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
+
+
+def describe_bound(pyr, codes, valid, angles, words) -> tuple[float, str]:
+    """orb_describe's bound on this input: the pixels of the valid keypoints'
+    windows (their union), the rows of idx0/idx1 of the bins they use and
+    mom_w, the codes and valid flags in, angles and words out; 2 x 1024
+    moment products and 32 words compares per valid keypoint."""
+    from pislam_tpu_torch.ops import kernels
+    h, w = pyr.shape
+    k, n = codes.numel(), int(valid.sum())
+    x = ((codes >> 12) & 0xFFF).clamp(kernels.RADIUS, w - kernels.RADIUS - 2)[valid]
+    y = (codes & 0xFFF).clamp(kernels.RADIUS, h - kernels.RADIUS - 2)[valid]
+    r = torch.arange(32, device=pyr.device) - kernels.RADIUS
+    touched = torch.zeros(h, w, dtype=torch.bool, device=pyr.device)
+    touched[(y[:, None] + r)[:, :, None], (x[:, None] + r)[:, None, :]] = True
+    bins = torch.unique(angles[valid]).numel()
+    nbytes = (int(touched.sum()) + bins * 2 * 32 * words * 2 + 1024 * 2
+              + k * (8 + 1) + k * (1 + 4 * words))
+    return bound_ms(nbytes, n * (2 * 1024 * 2 + 32 * words), SCALAR_OPS_S)
+
+
+def old_describe(img, codes, valid, idx0, idx1, mom_w, words):
+    """What orb_describe computes, as the frontend computed it before that
+    kernel: the codes decoded, K3's windows, K4's angles and words, then the
+    masks by valid (about a dozen device operations)."""
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.utils import codec
+    xs = codec.decode_x(codes).to(torch.int32)
+    ys = codec.decode_y(codes).to(torch.int32)
+    flat = kernels.gather_windows_packed(img, xs, ys, valid)
+    angles, desc = kernels.orb_select(flat, idx0, idx1, mom_w, words)
+    desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
+    return torch.where(valid, angles, torch.zeros_like(angles)), desc
+
+
+def describe_ab(dev, cfgs, results, card):
+    """orb_describe against old_describe on each config's first extraction
+    frame, bit-exact, then their device time and device operations per call,
+    alone and inside the whole extraction (an OrbExtractor whose kernel set
+    has old_describe in orb_describe's place), in turns old, new, new, old."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.ops import brief, kernels
+
+    tables = brief.OrbTables.build(dev)
+    for label, cfg in cfgs.items():
+        pyr, feats = results[label][0]
+        args = (pyr, feats.codes, feats.valid, *tables, cfg.frontend.words)
+        old_ext = pt.OrbExtractor(cfg, ops=kernels.HOPPER._replace(
+            orb_describe=old_describe)).to(dev)
+        new_ext = pt.make_extract_fn(cfg, dev)
+        require_equal(f"old_describe {label} angles", old_describe(*args)[0],
+                      kernels.orb_describe(*args)[0])
+        require_equal(f"old_describe {label} words", old_describe(*args)[1],
+                      kernels.orb_describe(*args)[1])
+        if not features_equal(old_ext(pyr), new_ext(pyr)):
+            raise AssertionError(f"{label}: the extraction with old_describe differs")
+        fns = {"old": (lambda: old_describe(*args), lambda: old_ext(pyr)),
+               "new": (lambda: kernels.orb_describe(*args), lambda: new_ext(pyr))}
+        for turn, name in enumerate(("old", "new", "new", "old")):
+            alone, extraction = fns[name]
+            d_us, d_n = device_us(alone)
+            e_us, e_n = device_us(extraction)
+            print(f"time describe {label} turn {turn} {name}: {d_us:.2f} us, {d_n:g} device "
+                  f"ops per call; extraction {e_us:.2f} us, {e_n:g} device ops per frame "
+                  f"[{card}]")
 
 
 def unfused_scored(pyr, level_mask, fc):
@@ -593,6 +693,19 @@ def k5_phase(dev, eval_feats, vga_feats, pts):
     for name, args in edges.items():
         check(name, args)
 
+    # more query rows than one launch takes: a launch per 65,536 rows, merged;
+    # rows 1 and K1 - 1 (in the second launch) tie in several columns
+    d1, v1 = _tile_database(g0, gv0, 70_000, rng)
+    for k1 in (65_537, 70_000):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in _k5_inputs(d1[:k1], v1[:k1], g0, gv0, rng)]
+        before = kernels.match_reduce.launches
+        check(f"{k1}x2048", args)
+        if kernels.match_reduce.launches - before != 2:
+            raise AssertionError(f"K5 {k1}x2048: {kernels.match_reduce.launches - before} "
+                                 "launches, expected 2")
+        edges[f"{k1}x2048 (2 launches)"] = args
+
     # two streams at once: the wrapper keeps a merge state per stream
     a, b = on_card["2048x16384"], on_card["512x16384 gated"]
     streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
@@ -716,9 +829,10 @@ def extraction_path(dev, frames, cfgs):
             results[label].append((pyr, extract[label](pyr)))
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    for name in ("fused_frontend_codes", "topk_keys", "gather_windows_packed", "orb_select"):
-        if launches[name] < n_frames:
-            raise AssertionError(f"{name}: {launches[name]} launches for {n_frames} frames")
+    for name, n in launches.items():
+        want = n_frames if name in FUSED_PATH_KERNELS and name != "match_reduce" else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches for {n_frames} frames, expected {want}")
 
     for label, cfg in cfgs.items():
         counts = []
@@ -754,20 +868,24 @@ def extraction_path(dev, frames, cfgs):
 def extraction_variants(dev, cfgs, results):
     """The frontend's other configurations on the same frames, each a path of
     its own (counts set to 0 before it, read after): unfused (plain
-    FAST/Harris/NMS, then K6) and dense BRIEF (K4d), each bit-exact against
-    the default path's Features; bucketing with an odd border (unfused, so
-    K6) against its own plain path. Returns the launch counts per variant."""
+    FAST/Harris/NMS, then K6, K2 and orb_describe) and dense BRIEF (K1, K2,
+    then K3 and K4d), each bit-exact against the default path's Features;
+    bucketing with an odd border (unfused, so K6) against its own plain
+    path. Every kernel's launches per frame are exact. Returns the launch
+    counts per variant."""
     import pislam_tpu_torch as pt
     from pislam_tpu_torch.ops import kernels
 
+    unfused = ("reduce_codes_4x", "topk_keys", "orb_describe")
     variants = {
-        "unfused": (dict(fused_upstream=False), "reduce_codes_4x", "fused_frontend_codes"),
-        "dense BRIEF": (dict(brief_variant="dense"), "orb_select_bits", "orb_select"),
-        "odd-border bucketing": (dict(log_bucket_size=4, bucket_limit=3, border=17),
-                                 "reduce_codes_4x", "fused_frontend_codes"),
+        "unfused": (dict(fused_upstream=False), unfused),
+        "dense BRIEF": (dict(brief_variant="dense"),
+                        ("fused_frontend_codes", "topk_keys", "gather_windows_packed",
+                         "orb_select_bits")),
+        "odd-border bucketing": (dict(log_bucket_size=4, bucket_limit=3, border=17), unfused),
     }
     out = {}
-    for vname, (change, runs, idle) in variants.items():
+    for vname, (change, runs) in variants.items():
         made = {label: dataclasses.replace(cfg, frontend=dataclasses.replace(
             cfg.frontend, **change)) for label, cfg in cfgs.items()}
         extract = {label: pt.make_extract_fn(c, dev) for label, c in made.items()}
@@ -776,9 +894,10 @@ def extraction_variants(dev, cfgs, results):
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         n = sum(len(f) for f in feats.values())
-        if launches[runs] != n or launches[idle] != 0:
-            raise AssertionError(f"{vname}: {runs} launched {launches[runs]} times, {idle} "
-                                 f"{launches[idle]} times, for {n} frames")
+        wrong = {k: c for k, c in launches.items() if c != (n if k in runs else 0)}
+        if wrong:
+            raise AssertionError(f"{vname}: launches {wrong} for {n} frames; expected "
+                                 f"{n} of {runs} and none of the others")
         for label in cfgs:
             ref = [f for _, f in results[label]]
             if vname == "odd-border bucketing":
@@ -855,6 +974,9 @@ def vo_path(dev, seqs, card):
         need = n_trans if name == "match_reduce" else n_frames
         if n < need:
             raise AssertionError(f"{name}: {n} launches for {need} frames or transitions")
+    for name in UNUSED_ON_SORTED_PATH:
+        if launches[name]:
+            raise AssertionError(f"{name}: {launches[name]} launches on the VO path")
 
     for name, (frames, _, gt) in seqs.items():
         out = outs[name]
@@ -970,7 +1092,7 @@ def vo_profile(dev, seqs, card):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     for name, us in top:
         print(f"profile VO device time {us / n:.2f} us/frame: {name[:100]}")
-    for label, fns in (("K1-K5", HOPPER_KERNEL_FUNCTIONS),
+    for label, fns in (("K1, K2, orb_describe and K5", HOPPER_KERNEL_FUNCTIONS),
                        ("K5", ("match_wgmma_kernel",))):
         us = sum(t for name, t in by_name.items() if any(f in name for f in fns))
         print(f"profile VO device time of {label}: {us / n:.2f} us/frame [{card}]")
@@ -1202,7 +1324,8 @@ def pose_graph_audit(graphs):
 
 def slam_path(dev, seqs, card):
     """KeyframeSLAM over every sequence at full length, then close_loop: the
-    port's main path. Every launch count is exact: K1-K4 once per frame, K5
+    port's main path. Every launch count is exact: K1, K2 and orb_describe
+    once per frame (K3 and K4 never), K5
     once per tracked frame and once more per map-tracked frame (Metrics),
     and in each closure as often as the CPU calls K5's plain version on the
     same closure. Then the CPU replays the run step by step: every frame from
@@ -1377,7 +1500,9 @@ def slam_unfused(dev, seqs, default):
             raise AssertionError(f"unfused SLAM frame {i}: Features differ from the default")
     if len(features) != len(frames) or slam.keyframe_frames != want_kf:
         raise AssertionError(f"unfused SLAM: keyframes {slam.keyframe_frames}, default {want_kf}")
-    if launches["reduce_codes_4x"] != len(frames) or launches["fused_frontend_codes"]:
+    if (launches["reduce_codes_4x"] != len(frames) or launches["orb_describe"] != len(frames)
+            or launches["fused_frontend_codes"]
+            or any(launches[k] for k in UNUSED_ON_SORTED_PATH)):
         raise AssertionError(f"unfused SLAM: launches {launches}")
     print(f"phase SLAM unfused eval_seq: {len(frames)} frames' Features and the keyframes "
           f"{slam.keyframe_frames} identical to the default run; launches "
@@ -1495,9 +1620,12 @@ def main():
         pyr_ms = time_ms(lambda: build_pyramid(frame, cfg.pyramid))
         ext_ms = time_ms(lambda: extract[label](pyr))
         plain_ms = time_ms(lambda: plain(pyr))
+        ext_us, ext_n = device_us(lambda: extract[label](pyr))
         print(f"time {label} ({tuple(pyr.shape)}, k={cfg.frontend.max_keypoints}): "
               f"pyramid {pyr_ms:.4f} ms/frame, extraction {ext_ms:.4f} ms/frame "
-              f"(plain path {plain_ms:.4f}) [{card}]")
+              f"(device {ext_us:.2f} us, {ext_n:g} device ops per frame; plain path "
+              f"{plain_ms:.4f}) [{card}]")
+    describe_ab(dev, cfgs, results, card)
     k5_shapes = {"eval": "512x512", "vga": "2048x2048"}
     for label in cfgs:
         a5 = k5_cases[k5_shapes[label]]
@@ -1532,13 +1660,15 @@ def main():
     slam_profile(dev, seqs, card)
 
     # the kernels at the eval shapes, each with its launches on its path: the
-    # SLAM path for K1-K5, SLAM with the unfused frontend for K6, the dense
-    # BRIEF extraction for K4d; no path of the JAX package runs K3c
+    # SLAM path for K1, K2, orb_describe and K5, SLAM with the unfused
+    # frontend for K6, the dense BRIEF extraction for K3 and K4d; K4 alone,
+    # K3c and K3a run on no path
     paths = {name: ("SLAM", launches) for name in FUSED_PATH_KERNELS}
     paths["reduce_codes_4x"] = ("SLAM unfused", unfused_launches)
-    paths["orb_select_bits"] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
-    paths["realign_windows"] = ("none", {"realign_windows": 0})
-    paths["pack_row_strips"] = ("none", {"pack_row_strips": 0})
+    for name in ("gather_windows_packed", "orb_select_bits"):
+        paths[name] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
+    for name in ("orb_select", "realign_windows", "pack_row_strips"):
+        paths[name] = ("none", {name: 0})
     out = []
     for k in kernels.COUNTED:
         k_ms, p_ms, l_ms, b_ms, b_by = times["eval"][k.__name__]

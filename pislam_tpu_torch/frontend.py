@@ -6,7 +6,9 @@ Harris and NMS run as one dense pass over the whole stacked
 and keypoint y coordinates are global pyramid rows. On a CUDA device the
 steps of the path are Hopper kernels (``ops/kernels.py``): K1 fused frontend
 (or, unfused, FAST/Harris/NMS in plain torch then K6's code reduction), K2
-top-k, K3 window gather, K4 ORB select (K4d for ``brief_variant="dense"``).
+top-k, then ``orb_describe`` (K3's window gather and K4's ORB select in one
+launch, codes to masked angles and descriptors); ``brief_variant="dense"``
+takes K3 then K4d instead.
 
 Output is a fixed-capacity ``Features`` batch, strongest first by
 (score, x, y).
@@ -94,6 +96,9 @@ def _extract_impl(img, level_mask, cfg: PislamConfig, tables: brief.OrbTables,
                                               reduce=ops.reduce_codes_4x,
                                               topk=ops.topk_keys)
 
+    if fc.brief_variant == "sorted":
+        angles, desc = ops.orb_describe(img, codes, valid, *tables, fc.words)
+        return Features(codes=codes, valid=valid, angles=angles, descriptors=desc)
     xs = codec.decode_x(codes).to(torch.int32)
     ys = codec.decode_y(codes).to(torch.int32)
     flat = patches.gather_patches_packed_s8(img, xs, ys, valid,

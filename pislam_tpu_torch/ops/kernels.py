@@ -74,6 +74,17 @@ K3a pack_row_strips      csrc/pack_row_strips.cu
     Replaces ``pack_row_strips`` (pallas_kernels.py:73): 4 image rows to one
     u32 per column, in 256-column strips, K3c's input. No path runs it.
     Bound: bytes. Design: one thread per output word, coalesced.
+K3+K4 orb_describe       csrc/orb_describe.cu
+    Replaces ``gather_windows_packed`` (pallas_kernels.py:195: K3a :79 and
+    K3b :154) followed by ``orb_select_bits_sorted`` (pallas_kernels.py:528,
+    :555), and the frontend's decode and masks around them: the sorted-BRIEF
+    path's codes -> masked angles and descriptors in one launch. Bound:
+    bytes, the touched windows, the table rows of the bins used, codes and
+    outputs (~0.17 us at 512 keypoints); one launch's fixed cost is what
+    remains. Design: one warp per keypoint, no block barrier: lane c loads
+    column c of the window (K3's packed words c, 32 + c, ...), the moments
+    reduce by butterfly shuffles so every lane has the bin, the window sits
+    in a 1 KB shared slot for the compares, one ballot per word.
 K3c realign_windows      csrc/realign_windows.cu
     Replaces ``realign_windows`` / ``_realign_kernel`` (pallas_kernels.py:172,
     :92): strip rows -> packed windows. No path of the JAX package runs it.
@@ -121,8 +132,8 @@ class HopperKernel:
         return out
 
 
-def hopper_kernel(plain, source, replaces):
-    return lambda launch: HopperKernel(launch, plain, source, replaces)
+def hopper_kernel(plain, source, replaces, cls=HopperKernel):
+    return lambda launch: cls(launch, plain, source, replaces)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -501,6 +512,63 @@ def orb_select(flat, idx0, idx1, mom_w, words: int):
     return angles, desc
 
 
+# ---------------------------------------------------------------------------
+# K3 + K4 on the sorted-BRIEF path: codes -> masked angles and descriptors
+# ---------------------------------------------------------------------------
+
+# keypoints (warps) per block of csrc/orb_describe.cu, and whether the block
+# stages idx0/idx1 in shared memory by TMA; the kernel is built for 1, 2, 4
+# and 8 warps, staged or not (tools/ab_orb_describe.py times each)
+ORB_DESCRIBE_WARPS = 4
+ORB_DESCRIBE_STAGE = False
+
+
+def orb_describe_plain(img, codes, valid, idx0, idx1, mom_w, words: int):
+    """(H, W) u8 image + (K,) int64 codes and bool valid -> ((K,) u8 angle
+    bins, (K, words) int32 descriptor words): K3's windows at the codes'
+    (x, y), K4's angles and bits, then angle 0 and zero words where not
+    valid (what the frontend did around K3 and K4)."""
+    xs = codec.decode_x(codes).to(torch.int32)
+    ys = codec.decode_y(codes).to(torch.int32)
+    flat = gather_windows_packed_plain(img, xs, ys, valid)
+    angles, desc = orb_select_plain(flat, idx0, idx1, mom_w, words)
+    return (torch.where(valid, angles, torch.zeros_like(angles)),
+            torch.where(valid[:, None], desc, torch.zeros_like(desc)))
+
+
+@hopper_kernel(orb_describe_plain, "pislam_tpu_torch/csrc/orb_describe.cu",
+               "pislam_tpu/ops/pallas_kernels.py:195,528")
+def orb_describe(img, codes, valid, idx0, idx1, mom_w, words: int, *,
+                 warps: int = ORB_DESCRIBE_WARPS, stage: bool = ORB_DESCRIBE_STAGE):
+    h, w = img.shape
+    if h < 32 or w < 32:
+        raise ValueError(f"image {h}x{w} is smaller than one 32x32 window")
+    dev = img.device
+    _check(img, "img", torch.uint8, 2, dev)
+    _check(codes, "codes", torch.int64, 1, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    _check(idx0, "idx0", torch.int16, 2, dev)
+    _check(idx1, "idx1", torch.int16, 2, dev)
+    _check(mom_w, "mom_w", torch.int8, 2, dev)
+    k = codes.numel()
+    if valid.numel() != k:
+        raise ValueError("codes and valid differ in length")
+    if idx0.shape != (30, 256) or idx1.shape != (30, 256) or mom_w.shape != (1024, 2):
+        raise ValueError("orb_describe: expects (30, 256) tables and (1024, 2) weights")
+    if not 1 <= words <= 8 or warps not in (1, 2, 4, 8):
+        raise ValueError(f"orb_describe: words={words} outside 1..8 or warps={warps} "
+                         "not 1, 2, 4 or 8")
+    # mom_w is read 8 bytes at a time; the staged tables by 16-byte bulk copies
+    if mom_w.data_ptr() % 8 or idx0.data_ptr() % 16 or idx1.data_ptr() % 16:
+        raise ValueError("orb_describe: mom_w must be 8-byte and idx0/idx1 16-byte aligned")
+    angles = torch.empty(k, dtype=torch.uint8, device=dev)
+    desc = torch.empty((k, words), dtype=torch.int32, device=dev)
+    _call("pislam_orb_describe", dev, img.data_ptr(), h, w, codes.data_ptr(),
+          valid.view(torch.uint8).data_ptr(), k, idx0.data_ptr(), idx1.data_ptr(),
+          mom_w.data_ptr(), words, warps, int(stage), angles.data_ptr(), desc.data_ptr())
+    return angles, desc
+
+
 def _atan2_bins_plain(m10, m01):
     # a call, not a reference: orientation imports this module
     return orientation.atan2_bins(m10, m01)
@@ -567,7 +635,7 @@ def orb_select_bits(flat, gm):
 # K5: Hamming best / second / first-argmin per row, first-argmin per column
 # ---------------------------------------------------------------------------
 
-MAX_MATCH_ROWS = 1 << 16      # the column keys hold the row in 16 bits
+MAX_MATCH_ROWS = 1 << 16      # per launch: the column keys hold the row in 16 bits
 MATCH_TILE = 128              # csrc/match_reduce.cu kTileN: columns per tile
 MATCH_WG_ROWS = 64            # csrc/match_reduce.cu kWgRows: rows per warpgroup
 
@@ -588,6 +656,59 @@ def match_reduce_plain(desc1, desc2, valid1, valid2, uv1=None, uv2=None,
         dist = matching.gate(dist, uv1, uv2, radius)
     idx, best, second = matching._best_two(dist)
     return best, second, idx, torch.argmin(dist, dim=0).to(torch.int32)
+
+
+def _pair_distances(desc1, desc2, valid1, valid2, rows, uv1=None, uv2=None, radius=None):
+    """(K2,) int32: entry j of ``match_reduce_plain``'s distance matrix at
+    (rows[j], j), the same arithmetic pair by pair."""
+    from .. import matching
+    nbits = desc1.shape[1] * 32
+    dot = (matching.expand_pm1(desc1[rows]).to(torch.int32)
+           * matching.expand_pm1(desc2).to(torch.int32)).sum(dim=1)
+    dist = (nbits - dot) >> 1
+    ok = valid1[rows] & valid2
+    if radius is not None:
+        d = uv1[rows] - uv2
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+        ok &= d2 <= torch.tensor(float(radius) * float(radius), dtype=torch.float32)
+    return torch.where(ok, dist, matching.MAX_DIST).to(torch.int32)
+
+
+def match_reduce_chunked(call, chunk: int, desc1, desc2, valid1, valid2, uv1=None,
+                         uv2=None, radius=None):
+    """``match_reduce``'s outputs with ``call`` (K5 or its plain version) run
+    on query rows in chunks of at most ``chunk``: best, second and idx per
+    row as they come; a column's argmin is the chunk winner of least
+    distance, the earliest chunk on a tie, as ``torch.argmin`` over all rows
+    takes the lowest row (so an all-invalid column gives row 0)."""
+    gated = radius is not None
+    rows_out, col, col_d = [], None, None
+    for lo in range(0, desc1.shape[0], chunk):
+        part = slice(lo, lo + chunk)
+        args = (desc1[part], desc2, valid1[part], valid2)
+        best, second, idx, c = call(*args, *((uv1[part], uv2, radius) if gated else ()))
+        rows_out.append((best, second, idx))
+        rows = c.long() + lo
+        d = _pair_distances(desc1, desc2, valid1, valid2, rows,
+                            *((uv1, uv2, radius) if gated else ()))
+        if col is None:
+            col, col_d = rows, d
+        else:
+            better = d < col_d
+            col, col_d = torch.where(better, rows, col), torch.where(better, d, col_d)
+    best, second, idx = (torch.cat(x) for x in zip(*rows_out))
+    return best, second, idx, col.to(torch.int32)
+
+
+class RowChunkedKernel(HopperKernel):
+    """K5's wrapper: on a CUDA device, more than MAX_MATCH_ROWS query rows go
+    in chunks of MAX_MATCH_ROWS, one launch (and one count) each, merged by
+    ``match_reduce_chunked``; the plain version takes any K1 at once."""
+
+    def __call__(self, desc1, *args, **launch_options):
+        if desc1.device.type == "cuda" and desc1.shape[0] > MAX_MATCH_ROWS:
+            return match_reduce_chunked(super().__call__, MAX_MATCH_ROWS, desc1, *args)
+        return super().__call__(desc1, *args, **launch_options)
 
 
 class MatchPlan(NamedTuple):
@@ -660,13 +781,13 @@ def _match_state(dev: torch.device, plan: MatchPlan) -> _MatchState:
 
 
 @hopper_kernel(match_reduce_plain, "pislam_tpu_torch/csrc/match_reduce.cu",
-               "pislam_tpu/ops/pallas_kernels.py:688")
+               "pislam_tpu/ops/pallas_kernels.py:688", cls=RowChunkedKernel)
 def match_reduce(desc1, desc2, valid1, valid2, uv1=None, uv2=None, radius=None):
     """``match_reduce_plain``'s outputs from one launch of K5 on the
-    current stream. The kernel merges its CTAs through scratch state that
-    it leaves as it found it; the wrapper keeps that state per (device,
-    stream), so calls on one stream run one after another and calls on two
-    streams never share it."""
+    current stream per MAX_MATCH_ROWS query rows (``RowChunkedKernel``). The
+    kernel merges its CTAs through scratch state that it leaves as it found
+    it; the wrapper keeps that state per (device, stream), so calls on one
+    stream run one after another and calls on two streams never share it."""
     dev = desc1.device
     _check(desc1, "desc1", torch.int32, 2, dev)
     _check(desc2, "desc2", torch.int32, 2, dev)
@@ -724,8 +845,9 @@ def reduce_codes_4x(scored):
 
 
 class KernelSet(NamedTuple):
-    """The kernels of the SLAM path: K1-K4 of the fused frontend, K6 of the
-    unfused one, K4d of the dense BRIEF variant, and K5 of matching."""
+    """The kernels of the SLAM path: K1, K2 and ``orb_describe`` of the
+    default (fused, sorted BRIEF) frontend, K6 of the unfused one, K3 and
+    K4d of the dense BRIEF variant, and K5 of matching; K4 runs on no path."""
 
     fused_frontend_codes: Callable
     topk_keys: Callable
@@ -734,17 +856,20 @@ class KernelSet(NamedTuple):
     match_reduce: Callable
     reduce_codes_4x: Callable
     orb_select_bits: Callable
+    orb_describe: Callable
 
 
 # The wrappers: plain on CPU tensors, Hopper kernels on CUDA tensors.
 HOPPER = KernelSet(fused_frontend_codes, topk_keys, gather_windows_packed,
-                   orb_select, match_reduce, reduce_codes_4x, orb_select_bits)
+                   orb_select, match_reduce, reduce_codes_4x, orb_select_bits,
+                   orb_describe)
 # The plain versions on any device: the reference the kernels are held to.
 PLAIN = KernelSet(fused_frontend_codes_plain, topk_keys_plain,
                   gather_windows_packed_plain, orb_select_plain,
-                  match_reduce_plain, reduce_codes_4x_plain, orb_select_bits_plain)
-# Every kernel with a launch count: the path's, and K3c and K3a, which no
-# path runs.
+                  match_reduce_plain, reduce_codes_4x_plain, orb_select_bits_plain,
+                  orb_describe_plain)
+# Every kernel with a launch count: the kernel set's, and K3c and K3a, which
+# no path runs.
 COUNTED = (*HOPPER, realign_windows, pack_row_strips)
 
 

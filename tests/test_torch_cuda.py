@@ -179,6 +179,51 @@ def test_k4(dev, words):
     _same(kernels.orb_select(*args), kernels.orb_select_plain(*args))
 
 
+def _describe_case(shape, k, seed, dev):
+    """Codes anywhere in [0, 4095]^2 (most inside the image), every clip
+    limit, code 0, invalid keypoints with stale codes."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    xs = np.concatenate([[0, 15, 16, w - 17, w - 16, w - 1, 4095, 0],
+                         rng.integers(0, w + 40, k)])[:k]
+    ys = np.concatenate([[0, 15, h - 17, 16, h - 16, h - 1, 0, 4095],
+                         rng.integers(0, h + 40, k)])[:k]
+    codes = (rng.integers(1, 256, k) << 24) | (xs << 12) | ys
+    codes[8 % k] = 0
+    valid = rng.random(k) < 0.9
+    valid[:min(k, 8)] = True
+    return (t(image(h, w, seed)).to(dev), t(codes.astype(np.int64)).to(dev),
+            t(valid).to(dev))
+
+
+DESCRIBE_VARIANTS = [pytest.param(warps, stage, id=f"w{warps}{'-tma' if stage else ''}")
+                     for warps in (1, 2, 4, 8) for stage in (False, True)]
+
+
+@pytest.mark.parametrize("warps,stage", DESCRIBE_VARIANTS)
+@pytest.mark.parametrize("shape,k", [((800, 384), 512), ((2216, 640), 2048), ((64, 256), 1),
+                                     ((64, 256), 7), ((32, 32), 33)])
+@pytest.mark.parametrize("words", [8, 4, 1])
+def test_orb_describe(dev, shape, k, words, warps, stage):
+    img, codes, valid = _describe_case(shape, k, k + words, dev)
+    args = (img, codes, valid, *brief.OrbTables.build(dev), words)
+    before = kernels.orb_describe.launches
+    got = kernels.orb_describe(*args, warps=warps, stage=stage)
+    assert kernels.orb_describe.launches == before + 1
+    _same(got, kernels.orb_describe_plain(*args))
+    cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    _same(got, kernels.orb_describe_plain(*cpu))
+
+
+@pytest.mark.parametrize("warps,stage", DESCRIBE_VARIANTS)
+def test_orb_describe_all_invalid(dev, warps, stage):
+    img, codes, _ = _describe_case((800, 384), 512, 3, dev)
+    args = (img, codes, torch.zeros_like(codes, dtype=torch.bool), *brief.OrbTables.build(dev), 8)
+    ang, desc = kernels.orb_describe(*args, warps=warps, stage=stage)
+    assert not ang.any() and not desc.any()
+    _same((ang, desc), kernels.orb_describe_plain(*args))
+
+
 def test_k4_atan2_sweep(dev):
     m10, m01 = (t(m).to(dev) for m in orientation.sweep_moments())
     _same(kernels.atan2_bins(m10, m01), orientation.atan2_bins(m10.cpu(), m01.cpu()))
@@ -219,6 +264,19 @@ def test_k5(dev, k1, k2, gated, words):
     before = kernels.match_reduce.launches
     _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*on_card))
     _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*args))
+    assert kernels.match_reduce.launches == before + 2
+
+
+@pytest.mark.parametrize("k1", [65_537, 70_000])
+def test_k5_beyond_max_rows(dev, k1):
+    """More query rows than one launch holds: one launch per 65,536 rows,
+    merged as one call over all rows would give."""
+    args = _match_case(k1, 2048, k1, False)
+    rows = t(np.arange(k1) % 4000)
+    args[0] = args[0][rows]                      # every row repeated: ties across chunks
+    on_card = [a.to(dev) for a in args]
+    before = kernels.match_reduce.launches
+    _same(kernels.match_reduce(*on_card), kernels.match_reduce_plain(*on_card))
     assert kernels.match_reduce.launches == before + 2
 
 
@@ -269,12 +327,13 @@ def test_frontend_on_card_matches_cpu(dev):
     pyr = build_pyramid(frame, cfg.pyramid)
     kernels.reset_launch_counts()
     on_card = pislam_tpu_torch.make_extract_fn(cfg, device=dev)(pyr.to(dev))
-    # one launch of each extraction kernel; K5 belongs to matching
+    # one launch of each kernel of the sorted-BRIEF extraction (K3 and K4
+    # run inside orb_describe); K5 belongs to matching
     assert kernels.launch_counts() == {"fused_frontend_codes": 1, "topk_keys": 1,
-                                       "gather_windows_packed": 1, "orb_select": 1,
+                                       "gather_windows_packed": 0, "orb_select": 0,
                                        "match_reduce": 0, "reduce_codes_4x": 0,
-                                       "orb_select_bits": 0, "realign_windows": 0,
-                                       "pack_row_strips": 0}
+                                       "orb_select_bits": 0, "orb_describe": 1,
+                                       "realign_windows": 0, "pack_row_strips": 0}
     _same(tuple(on_card), tuple(pislam_tpu_torch.make_extract_fn(cfg, device="cpu")(pyr)))
 
 

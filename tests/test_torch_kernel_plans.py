@@ -428,3 +428,62 @@ def test_kernel_merge_model_equals_plain(k1, k2, words, gated):
     # segments, and an all-invalid row keeps (MAX, MAX, 0)
     assert want[0][1] == 0 and want[2][1] == case["ties"][0] and want[1][1] == 0
     assert want[0][7] == want[1][7] == tm.MAX_DIST and want[2][7] == 0
+
+
+# ---------------------------------------------------------------------------
+# K5 beyond MAX_MATCH_ROWS: query rows in chunks, merged
+# ---------------------------------------------------------------------------
+
+def _chunk_case(seed, k1, k2, words, gated):
+    """Query rows that tie across chunk boundaries (rows 3, 10, 17 and
+    k1 - 1 equal, each column 2, 9 and k2 - 1 their perfect match), a later
+    chunk's row beating an earlier chunk's near miss in column 5, an
+    all-invalid column 6, invalid rows; for the gate inf points and a pair
+    on the radius. Returns the plain arguments as CPU tensors."""
+    rng = np.random.default_rng(seed)
+    d1 = rng.integers(0, 2**32, (k1, words), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (k2, words), dtype=np.uint32)
+    d1[[10, 17, k1 - 1]] = d1[3]
+    d2[[2, 9, k2 - 1]] = d1[3]
+    d2[5] = d1[k1 - 2]
+    d1[1] = d1[k1 - 2] ^ np.uint32(1)
+    v1, v2 = rng.random(k1) < 0.85, rng.random(k2) < 0.85
+    v1[[1, 3, 10, 17, k1 - 2, k1 - 1]] = True
+    v1[[4, 11]] = False
+    v2[[2, 5, 9, k2 - 1]] = True
+    v2[6] = False
+    args = [t(d1.view(np.int32)), t(d2.view(np.int32)), t(v1), t(v2)]
+    if gated:
+        uv1 = rng.uniform(-0.05, 0.05, (k1, 2)).astype(np.float32)
+        uv2 = rng.uniform(-0.05, 0.05, (k2, 2)).astype(np.float32)
+        uv2[[2, 9, k2 - 1]] = uv1[3]
+        uv1[[10, 17, k1 - 1]] = uv1[3]
+        uv2[12], uv1[13] = np.inf, np.inf
+        uv1[14] = uv2[15] + np.float32([0.06, 0.0])    # on the radius
+        args += [t(uv1), t(uv2), 0.06]
+    return args
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16, 49, 50, 64])
+@pytest.mark.parametrize("k1,k2,words,gated", [
+    (50, 40, 8, False), (50, 40, 8, True), (37, 300, 4, True), (23, 129, 1, False)])
+def test_match_reduce_chunked_equals_plain(k1, k2, words, gated, chunk):
+    """``match_reduce_chunked`` with the plain version on each chunk of
+    rows equals the plain version on all rows: ties across chunks go to the
+    lowest row, an all-invalid column to row 0, gated or not."""
+    args = _chunk_case(k1 + k2 + words, k1, k2, words, gated)
+    calls = []
+
+    def per_chunk(*a):
+        calls.append(a[0].shape[0])
+        return kernels.match_reduce_plain(*a)
+
+    got = kernels.match_reduce_chunked(per_chunk, chunk, *args)
+    want = kernels.match_reduce_plain(*args)
+    assert calls == [min(chunk, k1 - lo) for lo in range(0, k1, chunk)]
+    for name, g, w in zip(("best", "second", "idx", "col_argmin"), got, want):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w), name
+    col = want[3].numpy()
+    assert col[6] == 0                           # all-invalid column: row 0
+    if not gated or k1 > 17:
+        assert col[2] == col[9] == 3             # tied rows 3, 10, 17: the lowest
