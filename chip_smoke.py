@@ -480,7 +480,9 @@ def kernel_phase(dev, pyramids, cfgs):
     print(f"phase kernels: ok, K1 (the plan's tile and each of {kernels.FRONTEND_TILES}), "
           f"K2-K4 (K2 "
           f"also at n=k, n=k+1, all INT32_MIN, a shared top "
-          f"byte, k=8192), K6, K4d (K and 2048 keypoints, also against K4), K3c (2048 "
+          f"byte, k=8192), orb_describe (the path's keypoints and edge ones, all invalid, "
+          f"code 0, K=1; 8, 4 and 1 words; also against the extraction's Features), K6, "
+          f"K4d (K and 2048 keypoints, also against K4), K3c (2048 "
           f"keypoints, also against K3's bytes) and K3a bit-exact (tolerance 0) on VGA and "
           f"eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
     return errs, rows, feats

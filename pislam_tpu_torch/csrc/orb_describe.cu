@@ -16,27 +16,30 @@
 //
 // Bound: bytes, the touched windows (1 KB per keypoint at most, from L2,
 // where K1 has just read the pyramid), the table rows of the bins used and
-// the codes and outputs: ~0.17 us at 512 keypoints on 3.35 TB/s, so one
-// launch's fixed cost (~2 us) is what remains. K3 and K4 took a launch each
-// plus ~10 small operations of glue, and each spent its time on a chain of
-// dependent trips (K4: window reload, shuffles, __syncthreads, one thread's
-// bin, __syncthreads, table loads). Design: one warp per keypoint and no
-// block barrier. Lane c issues its 32 byte loads of column c at once and so
-// holds exactly K3's packed words c, 32 + c, ..., 224 + c; it multiplies
-// them with its column's mom_w bytes by dp4a, butterfly shuffles give every
-// lane both moments, and every lane computes the bin itself. The window
-// goes to a 1 KB shared slot of the warp for the random-access compares;
-// lane l compares pairs l + 32 j, one ballot per word j, and lane j stores
-// word j. kWarps warps (keypoints) share a block.
-//
-// kStage (measured against the direct loads, tools/ab_orb_describe.py):
-// the whole 30 KB of idx0/idx1 is staged into the block's shared memory by
-// two bulk copies (TMA) completing on an mbarrier, overlapped with the
-// window gather, so the bin-dependent table loads come from shared memory.
+// the codes and outputs: at most ~0.17 us at 512 keypoints on 3.35 TB/s
+// (0.06 us on eval_seq's overlapping windows), so one launch's fixed cost
+// (~2 us) is what remains. K3 and K4 took a launch each plus ~10 small
+// operations of glue, and each spent its time on a chain of dependent trips
+// (K4: window reload, shuffles, __syncthreads, one thread's bin,
+// __syncthreads, table loads). Design: one warp per keypoint. Lane c issues
+// its 32 byte loads of column c at once and so holds exactly K3's packed
+// words c, 32 + c, ..., 224 + c; it multiplies them with its column's mom_w
+// bytes by dp4a, butterfly shuffles give every lane both moments, and every
+// lane computes the bin itself. The window goes to a 1 KB shared slot of
+// the warp for the random-access compares; lane l compares pairs l + 32 j,
+// one ballot per word j, and lane j stores word j. The whole 30 KB of
+// idx0/idx1 is staged into the block's shared memory by two bulk copies
+// (TMA) completing on an mbarrier, overlapped with the window gather, so
+// the bin-dependent table loads come off the chain; the block's one
+// __syncthreads publishes the barrier's initialisation. Four warps
+// (keypoints) per block: of 1, 2, 4 and 8, staged or not, this was the
+// fastest at the eval shape and within 10 % of the fastest at VGA
+// (PERF.md).
 #include "common.cuh"
 
 namespace {
 
+constexpr int kWarps = 4;                        // keypoints per block
 constexpr int kTable = 30 * 256;                 // int16 entries of idx0 or idx1
 constexpr int kTableBytes = kTable * 2;          // 15,360: a multiple of 16
 
@@ -55,7 +58,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-template <int kWarps, bool kStage>
 __global__ void __launch_bounds__(32 * kWarps)
 orb_describe_kernel(const uint8_t* __restrict__ img, int h, int w,
                     const int64_t* __restrict__ codes,
@@ -65,32 +67,30 @@ orb_describe_kernel(const uint8_t* __restrict__ img, int h, int w,
                     const int8_t* __restrict__ mom_w, int words,
                     uint8_t* __restrict__ angles, uint32_t* __restrict__ desc) {
   __shared__ uint32_t s_win[kWarps][256];
-  __shared__ __align__(16) int16_t s_tab[kStage ? 2 * kTable : 8];
+  __shared__ __align__(16) int16_t s_tab[2 * kTable];
   __shared__ __align__(8) uint64_t s_bar;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kp = blockIdx.x * kWarps + warp;
 
-  if constexpr (kStage) {
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(&s_bar)),
-                   "r"(1) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const uint32_t bar = smem_addr(&s_bar);
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar), "r"(2 * kTableBytes) : "memory");
-      const int16_t* src[2] = {idx0, idx1};
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(&s_bar)),
+                 "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t bar = smem_addr(&s_bar);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(2 * kTableBytes) : "memory");
+    const int16_t* src[2] = {idx0, idx1};
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];"
-            :: "r"(smem_addr(s_tab + i * kTable)), "l"(reinterpret_cast<uint64_t>(src[i])),
-               "r"(kTableBytes), "r"(bar)
-            : "memory");
-      }
+    for (int i = 0; i < 2; ++i) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];"
+          :: "r"(smem_addr(s_tab + i * kTable)), "l"(reinterpret_cast<uint64_t>(src[i])),
+             "r"(kTableBytes), "r"(bar)
+          : "memory");
     }
   }
 
@@ -99,8 +99,7 @@ orb_describe_kernel(const uint8_t* __restrict__ img, int h, int w,
       if (lane < words) desc[(size_t)kp * words + lane] = 0u;
       if (lane == 0) angles[kp] = 0;
     }
-    // no warp leaves while the block's bulk copies may still write
-    if constexpr (kStage) mbar_wait(&s_bar, 0);
+    mbar_wait(&s_bar, 0);      // no warp leaves while the bulk copies may still write
     return;
   }
 
@@ -135,19 +134,13 @@ orb_describe_kernel(const uint8_t* __restrict__ img, int h, int w,
   const int bin = atan2_bin(m10, m01);
   __syncwarp();
 
-  const int16_t* t0 = idx0;
-  const int16_t* t1 = idx1;
-  if constexpr (kStage) {
-    mbar_wait(&s_bar, 0);
-    t0 = s_tab;
-    t1 = s_tab + kTable;
-  }
+  mbar_wait(&s_bar, 0);
   int i0[8], i1[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (j < words) {
-      i0[j] = t0[bin * 256 + 32 * j + lane];
-      i1[j] = t1[bin * 256 + 32 * j + lane];
+      i0[j] = s_tab[bin * 256 + 32 * j + lane];
+      i1[j] = s_tab[kTable + bin * 256 + 32 * j + lane];
     }
   }
   const int8_t* p = reinterpret_cast<const int8_t*>(s_win[warp]);
@@ -163,46 +156,17 @@ orb_describe_kernel(const uint8_t* __restrict__ img, int h, int w,
   if (lane == 0) angles[kp] = (uint8_t)bin;
 }
 
-template <int kWarps, bool kStage>
-int launch(const uint8_t* img, int h, int w, const int64_t* codes, const uint8_t* valid,
-           int k, const int16_t* idx0, const int16_t* idx1, const int8_t* mom_w, int words,
-           uint8_t* angles, int32_t* desc, cudaStream_t stream) {
-  orb_describe_kernel<kWarps, kStage><<<(k + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
-      img, h, w, codes, valid, k, idx0, idx1, mom_w, words, angles,
-      reinterpret_cast<uint32_t*>(desc));
-  return (int)cudaGetLastError();
-}
-
-template <bool kStage>
-int launch_warps(int warps, const uint8_t* img, int h, int w, const int64_t* codes,
-                 const uint8_t* valid, int k, const int16_t* idx0, const int16_t* idx1,
-                 const int8_t* mom_w, int words, uint8_t* angles, int32_t* desc,
-                 cudaStream_t stream) {
-  switch (warps) {
-    case 1: return launch<1, kStage>(img, h, w, codes, valid, k, idx0, idx1, mom_w, words,
-                                     angles, desc, stream);
-    case 2: return launch<2, kStage>(img, h, w, codes, valid, k, idx0, idx1, mom_w, words,
-                                     angles, desc, stream);
-    case 4: return launch<4, kStage>(img, h, w, codes, valid, k, idx0, idx1, mom_w, words,
-                                     angles, desc, stream);
-    case 8: return launch<8, kStage>(img, h, w, codes, valid, k, idx0, idx1, mom_w, words,
-                                     angles, desc, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// warps: keypoints per block (1, 2, 4 or 8); stage: 1 stages the tables by
-// TMA, 0 reads them through L1/L2.
+// idx0 and idx1 must be 16-byte aligned (bulk copies), mom_w 8-byte aligned.
 PISLAM_API int pislam_orb_describe(const uint8_t* img, int h, int w, const int64_t* codes,
                                    const uint8_t* valid, int k, const int16_t* idx0,
                                    const int16_t* idx1, const int8_t* mom_w, int words,
-                                   int warps, int stage, uint8_t* angles, int32_t* desc,
-                                   cudaStream_t stream) {
-  if (k <= 0) return (int)cudaGetLastError();
-  return stage ? launch_warps<true>(warps, img, h, w, codes, valid, k, idx0, idx1, mom_w,
-                                    words, angles, desc, stream)
-               : launch_warps<false>(warps, img, h, w, codes, valid, k, idx0, idx1, mom_w,
-                                     words, angles, desc, stream);
+                                   uint8_t* angles, int32_t* desc, cudaStream_t stream) {
+  if (k > 0) {
+    orb_describe_kernel<<<(k + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
+        img, h, w, codes, valid, k, idx0, idx1, mom_w, words, angles,
+        reinterpret_cast<uint32_t*>(desc));
+  }
+  return (int)cudaGetLastError();
 }

@@ -47,7 +47,7 @@ SIGNATURES = {
     "pislam_orb_select_dense": (_P, _I, _P, _I, _P, _P, _P),
     "pislam_realign_windows": (_P, _P, _P, _I, _P, _P),
     "pislam_pack_row_strips": (_P, _I, _I, _P, _P),
-    "pislam_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "pislam_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
     "pislam_device_limits": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
 }
 

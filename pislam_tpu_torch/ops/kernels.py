@@ -80,11 +80,12 @@ K3+K4 orb_describe       csrc/orb_describe.cu
     :555), and the frontend's decode and masks around them: the sorted-BRIEF
     path's codes -> masked angles and descriptors in one launch. Bound:
     bytes, the touched windows, the table rows of the bins used, codes and
-    outputs (~0.17 us at 512 keypoints); one launch's fixed cost is what
-    remains. Design: one warp per keypoint, no block barrier: lane c loads
+    outputs (at most ~0.17 us at 512 keypoints; 0.06 us on eval_seq's
+    overlapping windows); one launch's fixed cost is what remains. Design: one warp per keypoint, four per block: lane c loads
     column c of the window (K3's packed words c, 32 + c, ...), the moments
     reduce by butterfly shuffles so every lane has the bin, the window sits
-    in a 1 KB shared slot for the compares, one ballot per word.
+    in a 1 KB shared slot for the compares, one ballot per word; the BRIEF
+    tables reach shared memory by TMA while the windows load.
 K3c realign_windows      csrc/realign_windows.cu
     Replaces ``realign_windows`` / ``_realign_kernel`` (pallas_kernels.py:172,
     :92): strip rows -> packed windows. No path of the JAX package runs it.
@@ -516,13 +517,6 @@ def orb_select(flat, idx0, idx1, mom_w, words: int):
 # K3 + K4 on the sorted-BRIEF path: codes -> masked angles and descriptors
 # ---------------------------------------------------------------------------
 
-# keypoints (warps) per block of csrc/orb_describe.cu, and whether the block
-# stages idx0/idx1 in shared memory by TMA; the kernel is built for 1, 2, 4
-# and 8 warps, staged or not (tools/ab_orb_describe.py times each)
-ORB_DESCRIBE_WARPS = 4
-ORB_DESCRIBE_STAGE = False
-
-
 def orb_describe_plain(img, codes, valid, idx0, idx1, mom_w, words: int):
     """(H, W) u8 image + (K,) int64 codes and bool valid -> ((K,) u8 angle
     bins, (K, words) int32 descriptor words): K3's windows at the codes'
@@ -538,8 +532,7 @@ def orb_describe_plain(img, codes, valid, idx0, idx1, mom_w, words: int):
 
 @hopper_kernel(orb_describe_plain, "pislam_tpu_torch/csrc/orb_describe.cu",
                "pislam_tpu/ops/pallas_kernels.py:195,528")
-def orb_describe(img, codes, valid, idx0, idx1, mom_w, words: int, *,
-                 warps: int = ORB_DESCRIBE_WARPS, stage: bool = ORB_DESCRIBE_STAGE):
+def orb_describe(img, codes, valid, idx0, idx1, mom_w, words: int):
     h, w = img.shape
     if h < 32 or w < 32:
         raise ValueError(f"image {h}x{w} is smaller than one 32x32 window")
@@ -555,17 +548,16 @@ def orb_describe(img, codes, valid, idx0, idx1, mom_w, words: int, *,
         raise ValueError("codes and valid differ in length")
     if idx0.shape != (30, 256) or idx1.shape != (30, 256) or mom_w.shape != (1024, 2):
         raise ValueError("orb_describe: expects (30, 256) tables and (1024, 2) weights")
-    if not 1 <= words <= 8 or warps not in (1, 2, 4, 8):
-        raise ValueError(f"orb_describe: words={words} outside 1..8 or warps={warps} "
-                         "not 1, 2, 4 or 8")
-    # mom_w is read 8 bytes at a time; the staged tables by 16-byte bulk copies
+    if not 1 <= words <= 8:
+        raise ValueError(f"orb_describe: words={words} outside 1..8")
+    # mom_w is read 8 bytes at a time, the tables by 16-byte bulk copies
     if mom_w.data_ptr() % 8 or idx0.data_ptr() % 16 or idx1.data_ptr() % 16:
         raise ValueError("orb_describe: mom_w must be 8-byte and idx0/idx1 16-byte aligned")
     angles = torch.empty(k, dtype=torch.uint8, device=dev)
     desc = torch.empty((k, words), dtype=torch.int32, device=dev)
     _call("pislam_orb_describe", dev, img.data_ptr(), h, w, codes.data_ptr(),
           valid.view(torch.uint8).data_ptr(), k, idx0.data_ptr(), idx1.data_ptr(),
-          mom_w.data_ptr(), words, warps, int(stage), angles.data_ptr(), desc.data_ptr())
+          mom_w.data_ptr(), words, angles.data_ptr(), desc.data_ptr())
     return angles, desc
 
 

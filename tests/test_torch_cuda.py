@@ -196,30 +196,24 @@ def _describe_case(shape, k, seed, dev):
             t(valid).to(dev))
 
 
-DESCRIBE_VARIANTS = [pytest.param(warps, stage, id=f"w{warps}{'-tma' if stage else ''}")
-                     for warps in (1, 2, 4, 8) for stage in (False, True)]
-
-
-@pytest.mark.parametrize("warps,stage", DESCRIBE_VARIANTS)
 @pytest.mark.parametrize("shape,k", [((800, 384), 512), ((2216, 640), 2048), ((64, 256), 1),
                                      ((64, 256), 7), ((32, 32), 33)])
 @pytest.mark.parametrize("words", [8, 4, 1])
-def test_orb_describe(dev, shape, k, words, warps, stage):
+def test_orb_describe(dev, shape, k, words):
     img, codes, valid = _describe_case(shape, k, k + words, dev)
     args = (img, codes, valid, *brief.OrbTables.build(dev), words)
     before = kernels.orb_describe.launches
-    got = kernels.orb_describe(*args, warps=warps, stage=stage)
+    got = kernels.orb_describe(*args)
     assert kernels.orb_describe.launches == before + 1
     _same(got, kernels.orb_describe_plain(*args))
     cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
     _same(got, kernels.orb_describe_plain(*cpu))
 
 
-@pytest.mark.parametrize("warps,stage", DESCRIBE_VARIANTS)
-def test_orb_describe_all_invalid(dev, warps, stage):
+def test_orb_describe_all_invalid(dev):
     img, codes, _ = _describe_case((800, 384), 512, 3, dev)
     args = (img, codes, torch.zeros_like(codes, dtype=torch.bool), *brief.OrbTables.build(dev), 8)
-    ang, desc = kernels.orb_describe(*args, warps=warps, stage=stage)
+    ang, desc = kernels.orb_describe(*args)
     assert not ang.any() and not desc.any()
     _same((ang, desc), kernels.orb_describe_plain(*args))
 
