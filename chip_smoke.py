@@ -124,7 +124,6 @@ K1_OPS_PER_PIXEL = 100
 # the kernels of the default (fused, sorted BRIEF) frontend's VO and SLAM paths;
 # K3 and K4 run there inside orb_describe, and alone on no path of it
 FUSED_PATH_KERNELS = ("fused_frontend_codes", "topk_keys", "orb_describe", "match_reduce")
-UNUSED_ON_SORTED_PATH = ("gather_windows_packed", "orb_select")
 # The JAX package's KeyframeSLAM on the CPU at slam_config over each committed
 # sequence, seeds 7, 0, 1 and 2 of its PRNG key (slam_reference_range.py): per
 # ATE (per-frame SLAM, keyframes before and after close_loop) the lowest and
@@ -238,11 +237,12 @@ def device_us(fn, reps: int = 20) -> tuple[float, float]:
     return sum(e.time_range.elapsed_us() for e in ops) / reps, len(ops) / reps
 
 
-def bound_ms(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type."""
+    memory rate and the operations over the peak rate of their type, summed
+    over the (operations, rate) pairs of `work`."""
     by_bytes = nbytes / HBM_BYTES_S * 1e3
-    by_ops = ops / rate * 1e3
+    by_ops = sum(ops / rate for ops, rate in work) * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
@@ -300,7 +300,7 @@ def k1_times(cases, card):
     for label, args1 in cases.items():
         (h, w), n_px = args1[0].shape, args1[0].numel()
         b_ms, b_by = bound_ms(2 * n_px + (h + 1) // 2 * ((w + 1) // 2) * 4,
-                              K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S)
+                              (K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S))
         plans = k1_plans(args1[0].shape)
         for i, plan in enumerate(plans):
             kw = {} if i == 0 else {"plan": plan}
@@ -448,26 +448,27 @@ def kernel_phase(dev, pyramids, cfgs):
         bins = torch.unique(kernels.orb_select_bits(flat, gm)[0]).numel()
         rows[label] = {
             "fused_frontend_codes": (args1, None, bound_ms(
-                2 * n_px + grid.numel() * 4, K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S)),
+                2 * n_px + grid.numel() * 4, (K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S))),
             "topk_keys": ((keys, k), lambda: torch.topk(keys, k),
-                          bound_ms(keys.numel() * 4 + k * 4, 4 * keys.numel(), SCALAR_OPS_S)),
+                          bound_ms(keys.numel() * 4 + k * 4, (4 * keys.numel(), SCALAR_OPS_S))),
             "gather_windows_packed": (args3, None, bound_ms(
-                n_px + k * (4 + 4 + 1) + k * 1024, 0, SCALAR_OPS_S)),
+                n_px + k * (4 + 4 + 1) + k * 1024)),
             "orb_select": (args4, None, bound_ms(
                 flat.numel() + sum(tb.numel() * tb.element_size() for tb in tables)
-                + k * (1 + 4 * fc.words), k * (2 * 1024 * 2 + 256), SCALAR_OPS_S)),
+                + k * (1 + 4 * fc.words), (k * 2 * 1024 * 2, INT8_OPS_S),
+                (k * 256, SCALAR_OPS_S))),
             "reduce_codes_4x": ((scored,), None, bound_ms(
-                scored.numel() + red.numel() * 4, 0, SCALAR_OPS_S)),
+                scored.numel() + red.numel() * 4)),
             # the slabs of the bins this input selects and the moment columns
             "orb_select_bits": ((flat, gm), None, bound_ms(
                 flat.numel() + bins * 1024 * 256 + 1024 * 2 + k * (4 + 256),
-                2 * k * 1024 * (256 + 2), INT8_OPS_S)),
+                (2 * k * 1024 * (256 + 2), INT8_OPS_S))),
             # each keypoint's 9 rows x 32 words, psi and phi; 1 KB out
             "realign_windows": (args3c, None, bound_ms(
-                k * (9 * 32 * 4 + 8 + 1024), 0, SCALAR_OPS_S)),
+                k * (9 * 32 * 4 + 8 + 1024))),
             # the image in, every strip's words out
             "pack_row_strips": ((pyr,), None, bound_ms(
-                n_px + strips.numel() * 4, 0, SCALAR_OPS_S)),
+                n_px + strips.numel() * 4)),
             "orb_describe": ((pyr, codes, valid, *tables, fc.words), None,
                              describe_bound(pyr, codes, valid, fd.angles, fc.words)),
         }
@@ -491,8 +492,9 @@ def kernel_phase(dev, pyramids, cfgs):
 def describe_bound(pyr, codes, valid, angles, words) -> tuple[float, str]:
     """orb_describe's bound on this input: the pixels of the valid keypoints'
     windows (their union), the rows of idx0/idx1 of the bins they use and
-    mom_w, the codes and valid flags in, angles and words out; 2 x 1024
-    moment products and 32 words compares per valid keypoint."""
+    mom_w, the codes and valid flags in, angles and words out; 2 x 1024 int8
+    moment products per valid keypoint at the int8 rate, and its 32 words
+    compares at the scalar rate."""
     from pislam_tpu_torch.ops import kernels
     h, w = pyr.shape
     k, n = codes.numel(), int(valid.sum())
@@ -504,7 +506,7 @@ def describe_bound(pyr, codes, valid, angles, words) -> tuple[float, str]:
     bins = torch.unique(angles[valid]).numel()
     nbytes = (int(touched.sum()) + bins * 2 * 32 * words * 2 + 1024 * 2
               + k * (8 + 1) + k * (1 + 4 * words))
-    return bound_ms(nbytes, n * (2 * 1024 * 2 + 32 * words), SCALAR_OPS_S)
+    return bound_ms(nbytes, (n * 2 * 1024 * 2, INT8_OPS_S), (n * 32 * words, SCALAR_OPS_S))
 
 
 def old_describe(img, codes, valid, idx0, idx1, mom_w, words):
@@ -775,7 +777,7 @@ def topk_large_times(dev, cases, card):
 
     for label, (keys, k, shape) in cases.items():
         plan = kernels.topk_plan(keys.numel(), k, kernels.device_limits(dev)[1])
-        b_ms, b_by = bound_ms(keys.numel() * 4 + k * 4, 4 * keys.numel(), SCALAR_OPS_S)
+        b_ms, b_by = bound_ms(keys.numel() * 4 + k * 4, (4 * keys.numel(), SCALAR_OPS_S))
         d_us, d_n = device_us(lambda: kernels.topk_keys(keys, k))
         print(f"time kernel topk_keys at {label} ({shape}, {keys.numel()} keys, "
               f"{int((keys != nms.INT32_MIN).sum())} nonzero, k={k}, keys in "
@@ -805,7 +807,7 @@ def k5_bound(args) -> tuple[float, str]:
     nbytes = (k1 + k2) * w * 4 + k1 + k2 + (3 * k1 + k2) * 4
     if len(args) == 7:
         nbytes += (k1 + k2) * 8
-    return bound_ms(nbytes, 2 * k1 * k2 * w * 32, INT8_OPS_S)
+    return bound_ms(nbytes, (2 * k1 * k2 * w * 32, INT8_OPS_S))
 
 
 # ---------------------------------------------------------------------------
@@ -971,14 +973,12 @@ def vo_path(dev, seqs, card):
     launches = kernels.launch_counts()
     n_frames = sum(len(f) for f, _, _ in seqs.values())
     n_trans = n_frames - len(seqs)
-    for name in FUSED_PATH_KERNELS:
-        n = launches[name]
-        need = n_trans if name == "match_reduce" else n_frames
-        if n < need:
-            raise AssertionError(f"{name}: {n} launches for {need} frames or transitions")
-    for name in UNUSED_ON_SORTED_PATH:
-        if launches[name]:
-            raise AssertionError(f"{name}: {launches[name]} launches on the VO path")
+    for name, n in launches.items():
+        want = ((n_trans if name == "match_reduce" else n_frames)
+                if name in FUSED_PATH_KERNELS else 0)
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches on the VO path over {n_frames} "
+                                 f"frames, expected {want}")
 
     for name, (frames, _, gt) in seqs.items():
         out = outs[name]
@@ -1502,9 +1502,11 @@ def slam_unfused(dev, seqs, default):
             raise AssertionError(f"unfused SLAM frame {i}: Features differ from the default")
     if len(features) != len(frames) or slam.keyframe_frames != want_kf:
         raise AssertionError(f"unfused SLAM: keyframes {slam.keyframe_frames}, default {want_kf}")
-    if (launches["reduce_codes_4x"] != len(frames) or launches["orb_describe"] != len(frames)
-            or launches["fused_frontend_codes"]
-            or any(launches[k] for k in UNUSED_ON_SORTED_PATH)):
+    # per frame K6, K2 and orb_describe, and no other kernel but K5 (whose
+    # count the tracking decides)
+    per_frame = ("reduce_codes_4x", "topk_keys", "orb_describe")
+    if any(n != (len(frames) if k in per_frame else 0)
+           for k, n in launches.items() if k != "match_reduce"):
         raise AssertionError(f"unfused SLAM: launches {launches}")
     print(f"phase SLAM unfused eval_seq: {len(frames)} frames' Features and the keyframes "
           f"{slam.keyframe_frames} identical to the default run; launches "

@@ -133,8 +133,8 @@ class HopperKernel:
         return out
 
 
-def hopper_kernel(plain, source, replaces, cls=HopperKernel):
-    return lambda launch: cls(launch, plain, source, replaces)
+def hopper_kernel(plain, source, replaces):
+    return lambda launch: HopperKernel(launch, plain, source, replaces)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -772,8 +772,9 @@ def _match_state(dev: torch.device, plan: MatchPlan) -> _MatchState:
     return state
 
 
-@hopper_kernel(match_reduce_plain, "pislam_tpu_torch/csrc/match_reduce.cu",
-               "pislam_tpu/ops/pallas_kernels.py:688", cls=RowChunkedKernel)
+@lambda launch: RowChunkedKernel(launch, match_reduce_plain,
+                                  "pislam_tpu_torch/csrc/match_reduce.cu",
+                                  "pislam_tpu/ops/pallas_kernels.py:688")
 def match_reduce(desc1, desc2, valid1, valid2, uv1=None, uv2=None, radius=None):
     """``match_reduce_plain``'s outputs from one launch of K5 on the
     current stream per MAX_MATCH_ROWS query rows (``RowChunkedKernel``). The

@@ -4,7 +4,7 @@ seeds: the reference range that chip_smoke.py prints beside the PyTorch
 port's SLAM ATEs.
 
     JAX_PLATFORMS=cpu python3 slam_reference_range.py [--seq eval_seq ...]
-        [--seeds 7 0 1 2] [--port [--device cpu cuda] [--ba64] | --replay]
+        [--seeds 7 0 1 2] [--port | --replay]
 
 Runs ``pislam_tpu.models.slam.KeyframeSLAM`` at tools/eval_ate.py's
 ``slam_config`` (``chip_smoke.slam_config``; keyframe_min_inliers=60,
@@ -18,14 +18,6 @@ keeps those of the default seeds as ``SLAM_REFERENCE``.
 With ``--port`` the same loop runs the PyTorch port's ``KeyframeSLAM`` on
 the CPU instead (``device="cpu"``, its own ``torch.Generator`` seeded with
 ``seed``): the port's free runs that README.md and ROADMAP.md quote.
-``--device cpu cuda`` runs them on each device in turn; on a card the RANSAC
-samples are drawn from a CPU generator seeded with ``seed``, the stream the
-CPU run draws from, so the runs see the same samples while their decisions
-agree, and a line per (sequence, seed) says whether the card's run repeats
-the first device's (keyframes, the frame where the trajectories first part
-by more than 1e-3, the largest difference). ``--ba64`` solves windowed and
-global BA in float64 (the problem cast up, the result cast back to
-float32); the port's code stays float32.
 
 With ``--replay`` it runs the JAX package at the first seed and, for every frame
 after the first, the port on the CPU from the JAX state before that frame
@@ -42,7 +34,6 @@ never does.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -73,52 +64,20 @@ def load(name: str):
     return d["frames"], tuple(float(d[k]) for k in ("fx", "fy", "cx", "cy")), gt
 
 
-@contextlib.contextmanager
-def port_patches(device: str, seed: int, ba64: bool):
-    """The port's RANSAC draws from a CPU generator on a card, and float64
-    BA, for the duration of one run."""
-    import torch
-
-    from pislam_tpu_torch.backend import ba
-    from pislam_tpu_torch.geometry import ransac
-    draw, solve = ransac.sample_indices, ba.bundle_adjust
-    if device != "cpu":
-        gen = torch.Generator().manual_seed(seed)
-        ransac.sample_indices = lambda valid, iters, size, _g=None: draw(
-            valid.cpu(), iters, size, gen).to(valid.device)
-    if ba64:
-        def cast(p, dtype):
-            return ba.BAProblem(*(x.to(dtype) if x.is_floating_point() else x for x in p))
-
-        def solve64(p, **kw):
-            out, info = solve(cast(p, torch.float64), **kw)
-            return cast(out, torch.float32), info
-        ba.bundle_adjust = solve64
-    try:
-        yield
-    finally:
-        ransac.sample_indices, ba.bundle_adjust = draw, solve
-
-
-def run(name: str, seed: int, port: bool = False, device: str = "cpu",
-        ba64: bool = False) -> dict:
+def run(name: str, seed: int, port: bool = False) -> dict:
     frames, intr, gt = load(name)
     if port:
         import pislam_tpu_torch as pt
         from pislam_tpu_torch.evaluation import ate_rmse
-        with port_patches(device, seed, ba64):
-            return _run(pt.KeyframeSLAM(slam_config(), *intr, seed=seed, device=device, **KW),
-                        np.asarray, ate_rmse, name, seed, frames, gt,
-                        {"device": device, "ba64": ba64})
-    import jax.numpy as jnp
+        slam = pt.KeyframeSLAM(slam_config(), *intr, seed=seed, device="cpu", **KW)
+        frame = np.asarray
+    else:
+        import jax.numpy as jnp
 
-    from pislam_tpu.evaluation import ate_rmse
-    from pislam_tpu.models.slam import KeyframeSLAM
-    return _run(KeyframeSLAM(jax_config(), *intr, seed=seed, **KW), jnp.asarray, ate_rmse,
-                name, seed, frames, gt, {})
-
-
-def _run(slam, frame, ate_rmse, name, seed, frames, gt, extra) -> dict:
+        from pislam_tpu.evaluation import ate_rmse
+        from pislam_tpu.models.slam import KeyframeSLAM
+        slam = KeyframeSLAM(jax_config(), *intr, seed=seed, **KW)
+        frame = jnp.asarray
     t0 = time.perf_counter()
     for f in frames:
         slam.process(frame(f))
@@ -130,7 +89,7 @@ def _run(slam, frame, ate_rmse, name, seed, frames, gt, extra) -> dict:
     t_close = time.perf_counter() - t0
     gt_kf = gt[np.asarray(kf_frames)]
     surviving = {v.index for v in slam.keyframes}
-    return {"seq": name, "package": "port" if extra else "jax", "seed": seed, **extra,
+    return {"seq": name, "package": "port" if port else "jax", "seed": seed,
             "frames": int(len(frames)), "keyframes": len(kf_frames),
             "inserted": slam.keyframes_inserted,
             "slam_ate": float(ate_rmse(np.stack(slam.trajectory), gt)),
@@ -138,20 +97,7 @@ def _run(slam, frame, ate_rmse, name, seed, frames, gt, extra) -> dict:
             "kf_ate_post": float(ate_rmse(slam.keyframe_positions(), gt_kf)),
             "loop": int(out["loop"]), "loop_survives": int(out["loop"]) in surviving,
             "used_graph": bool(out["used_graph"]), "lost": slam.frames_lost,
-            "track_s": t_track, "close_s": t_close, "kf_frames": list(kf_frames),
-            "trajectory": np.stack(slam.trajectory)}
-
-
-def compare(a: dict, b: dict) -> dict:
-    """Whether run b repeats run a: the same keyframes, the first frame
-    whose positions part by more than 1e-3, the largest difference."""
-    diff = np.abs(a["trajectory"] - b["trajectory"]).max(axis=1)
-    apart = np.nonzero(diff > 1e-3)[0]
-    return {"seq": a["seq"], "seed": a["seed"], "devices": [a["device"], b["device"]],
-            "same_keyframes": a["kf_frames"] == b["kf_frames"],
-            "first_frame_apart": int(apart[0]) if len(apart) else None,
-            "max_position_diff": float(diff.max()),
-            "ates": {k: [a[k], b[k]] for k in ATES}}
+            "track_s": t_track, "close_s": t_close}
 
 
 def replay(name: str, seed: int = 7) -> dict:
@@ -195,10 +141,6 @@ def main():
     ap.add_argument("--seeds", nargs="*", type=int, default=[7, 0, 1, 2])
     ap.add_argument("--port", action="store_true",
                     help="run pislam_tpu_torch on the CPU instead of the JAX package")
-    ap.add_argument("--device", nargs="*", default=["cpu"],
-                    help="with --port: run on each of these devices in turn")
-    ap.add_argument("--ba64", action="store_true",
-                    help="with --port: windowed and global BA in float64")
     ap.add_argument("--replay", action="store_true",
                     help="replay the port step by step from the JAX package's states")
     args = ap.parse_args()
@@ -209,13 +151,8 @@ def main():
     rows = []
     for name in args.seq:
         for seed in args.seeds:
-            runs = [run(name, seed, True, d, args.ba64) for d in args.device] if args.port \
-                else [run(name, seed)]
-            for r in runs:
-                print(json.dumps({k: v for k, v in r.items() if k != "trajectory"}), flush=True)
-            for r in runs[1:]:
-                print(json.dumps(compare(runs[0], r)), flush=True)
-            rows.append(runs[0])
+            rows.append(run(name, seed, args.port))
+            print(json.dumps(rows[-1]), flush=True)
     ranges = {}
     for name in args.seq:
         mine = [r for r in rows if r["seq"] == name]
