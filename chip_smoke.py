@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ORB extraction, visual odometry and keyframe SLAM
-on one CUDA card and check them.
+(per frame and in device-resident chunks) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -53,7 +53,7 @@ prints no result line):
    kernel's launch count must reach the frames (K5: the transitions); on
    eval_seq the plain path on the card gives the same matches and decisions
    frame by frame, and the CPU agrees on the first 4 transitions.
-6. SLAM path, the main path: KeyframeSLAM(slam_config(), device="cuda") over
+6. SLAM path: KeyframeSLAM(slam_config(), device="cuda") over
    the four sequences at full length, then close_loop, with exact launch
    counts; the CPU replays every frame and each closure from the card's
    state with the card's RANSAC draws (same decisions, counters, loop and
@@ -64,15 +64,29 @@ prints no result line):
    seeds 7/0/1/2 (SLAM_REFERENCE), which holds nothing. Then SLAM on
    eval_seq with fused_upstream=False: the same Features every frame and
    the same keyframes, K6 once per frame.
-7. times from CUDA events (median of 30 after warm-up) and host clocks
+7. chunk path, the main path: KeyframeSLAM.process_chunk in chunks of 8
+   over the four sequences at full length, with exact launch counts (K1,
+   K2, orb_describe once per frame plus once per chunk that ends lost; K5
+   twice per tracked frame plus the boundary relocalisations'), each ATE
+   below max(2.5 x phase 6's, 0.15) and ms/frame beside phase 6's; chunk 1
+   against process on eval_seq (Huber off, bootstrap_model_select off and
+   on), step by step from process's states with its draws: the same
+   decisions, inliers and counters, poses within 5e-2 (free runs printed); the
+   E/H bootstrap on the card against the CPU from the same inputs and
+   draws; the service's housekeeping on eval_seq4 at small tables and a
+   merge of a second session, each operation replayed on the CPU from the
+   card's state; and a reading for ROADMAP F1 (eval_seq2 frames 3-4, card
+   against CPU stage by stage from one state).
+8. times from CUDA events (median of 30 after warm-up) and host clocks
    ending in a synchronize, device time and device kernels per call from
    torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
    plan's tile and under each tile forced; orb_describe against the
    composition it replaced, decode + K3 + K4 + masks, in turns old, new,
    new, old, alone and inside the extraction), SLAM stage times,
    torch.profiler windows over 20 VO and
-   20 SLAM frames, and which operations make the host wait; the card's name
-   and power limit on every line.
+   20 SLAM frames, and which operations make the host wait (per SLAM frame,
+   and per chunk of 8 by line, inside the scan's frame loop and outside);
+   the card's name and power limit on every line.
 
 The line before the last is {"kernels": [...]}, the last line is
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
@@ -740,7 +754,7 @@ def topk_large_phase(dev):
     K1's keys at k = 512, 2048 (the default) and 8192, and with fewer
     survivors than k, each bit-exact against its plain version. Returns K1's
     and K2's max |error| and, per frame, K1's inputs and K2's keys, default
-    k and pyramid shape, for the times of phase 7."""
+    k and pyramid shape, for the times of phase 8."""
     import pislam_tpu_torch as pt
     from pislam_tpu_torch.ops import kernels, nms
     from pislam_tpu_torch.ops.pyramid import build_pyramid
@@ -1558,6 +1572,571 @@ def slam_profile(dev, seqs, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the chunk path
+# ---------------------------------------------------------------------------
+
+CHUNK = 8
+# tests/test_slam_scan.py's rule for chunked tracking: chunk-8 ATE below
+# max(2.5 x the per-frame path's, 0.15); its trajectory tolerance between
+# chunk 1 and the per-frame loop
+CHUNK_ATE_FACTOR, CHUNK_ATE_FLOOR = 2.5, 0.15
+CHUNK_POSE_TOL = 5e-2
+# the service's maintenance test (tests/test_service.py): small tables,
+# housekeeping every 2 inserts, 256 landmark slots kept free
+MAINT_LANDMARKS, MAINT_OBS, MAINT_EVERY, MAINT_MIN_FREE = 768, 3072, 2, 256
+MAINT_FRAMES = 112           # session A: eval_seq4 frames 0-111
+MERGE_FROM = 96              # session B: eval_seq4 frames 96-223, seed 99
+# card against CPU from one state: housekeeping floats (copies and
+# permutations) within this; merged poses and landmarks, which come through
+# relocalisation (SVD refits, motion-only BA), within it relative to size
+MAINT_TOL = 1e-4
+HOMOG_TOL = 1e-4
+
+
+def run_chunks(slam, frames, chunk=CHUNK):
+    outs = [slam.process_chunk(frames[i:i + chunk]) for i in range(0, len(frames), chunk)]
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def launches_inside(obj, name):
+    """Wraps the method ``name`` of ``obj``; returns a dict that sums the
+    kernel launches made inside its calls."""
+    from pislam_tpu_torch.ops import kernels
+    fn, total = getattr(obj, name), {"calls": 0}
+
+    def counting(*args, **kw):
+        before = kernels.launch_counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            total["calls"] += 1
+            for k, n in kernels.launch_counts().items():
+                total[k] = total.get(k, 0) + n - before[k]
+
+    setattr(obj, name, counting)
+    return total
+
+
+def chunk_path(dev, seqs, card, slam_res):
+    """process_chunk(8) over every sequence at full length, the slice's main
+    path. Launches are exact: K1, K2 and orb_describe once per frame plus
+    once per chunk that ends lost (its last frame is extracted again to
+    relocalise); K5 twice per tracked frame (the keyframe match, ungated,
+    and map tracking, gated, which the scan runs on every tracked frame
+    and selects on the device) plus what the boundary relocalisations
+    launch; every other kernel never. ATE held to the per-frame path's of
+    phase 6 (tests/test_slam_scan.py's rule); ms/frame on the host clock to
+    a synchronize, beside phase 6's. Returns the launches."""
+    from pislam_tpu_torch import evaluation
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.utils.metrics import Metrics
+
+    cfg = slam_config()
+    on_card = {name: torch.as_tensor(frames).to(dev) for name, (frames, _, _) in seqs.items()}
+    run_chunks(make_slam(cfg, seqs["eval_seq"][1], dev), on_card["eval_seq"][:2 * CHUNK])
+    torch.cuda.synchronize()                                     # warm-up
+    launches, failures = {k.__name__: 0 for k in kernels.COUNTED}, []
+    for name, (frames, intr, gt) in seqs.items():
+        metrics = Metrics(sink=lambda line: None)
+        slam = make_slam(cfg, intr, dev, metrics)
+        reloc = launches_inside(slam, "_relocalise_feats")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_chunks(slam, on_card[name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        extra = metrics.snapshot().get("calls.relocalise", 0)
+        want = {k: len(frames) + extra for k in FUSED_PATH_KERNELS}
+        want["match_reduce"] = 2 * (len(frames) - 1) + reloc.get("match_reduce", 0)
+        for k, n in got.items():
+            launches[k] += n
+            if n != want.get(k, 0):
+                failures.append(f"{name}: {k} launched {n} times, expected {want.get(k, 0)}")
+        traj = np.stack(slam.trajectory)
+        if not np.isfinite(traj).all() or traj.shape != (len(frames), 3):
+            failures.append(f"{name}: trajectory not finite or of wrong shape")
+            continue
+        ate = evaluation.ate_rmse(traj, gt)
+        per_frame = slam_res[name]["ates"]["slam_ate"]
+        limit = max(CHUNK_ATE_FACTOR * per_frame, CHUNK_ATE_FLOOR)
+        if not ate < limit:
+            failures.append(f"{name}: chunk-{CHUNK} ATE {ate:.4f}, limit {limit:.4f}")
+        print(f"phase chunk {name}: {len(frames)} frames in chunks of {CHUNK}, "
+              f"{len(slam.keyframe_frames)} keyframes ({slam.keyframes_inserted} inserted), "
+              f"ATE {ate:.4f} (per-frame path {per_frame:.4f}, limit {limit:.4f}); "
+              f"{int(out['keyframe'].sum())} in-scan keyframe decisions, lost at a chunk's "
+              f"end {slam.frames_lost}, relocalisations {slam.relocalisations}")
+        r = slam_res[name]
+        print(f"time chunk {name}: {wall / len(frames) * 1e3:.4f} ms/frame in chunks of "
+              f"{CHUNK} (host clock to synchronize; the per-frame path of phase 6 "
+              f"{r['t_track'] / r['frames'] * 1e3:.4f}) [{card}]")
+    if failures:
+        raise AssertionError(f"chunk path: {len(failures)} failures: " + "; ".join(failures))
+    print(f"phase chunk path launches: {json.dumps(launches)}")
+    return launches
+
+
+def _huber_off(cfg, **vo):
+    return dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, huber=0.0),
+                               vo=dataclasses.replace(cfg.vo, **vo))
+
+
+def chunk1_vs_process(dev, seqs, card):
+    """Chunk 1 against process on the card: eval_seq, Huber off (ROADMAP
+    R3), generator seed 7, with the E/H bootstrap off and on. Step by step,
+    as phase 6 holds the CPU to the card: chunk 1 from process's state before
+    each frame, with the draws process made for it, takes the same keyframe
+    decision with the same RANSAC inliers and counters after it, map inliers
+    within INLIER_TOL and the pose within CHUNK_POSE_TOL. The two run free
+    are compared as well and printed, not held: process chains the frame's
+    pose on the host in numpy, the scan on the card, whose float32 products
+    round apart, and the gated matches and windowed BA turn that into
+    different maps (ROADMAP F1)."""
+    from pislam_tpu_torch.geometry import ransac
+
+    frames, intr, _ = seqs["eval_seq"]
+    on_card = torch.as_tensor(frames).to(dev)
+    draws = Draws(ransac.sample_indices)
+    ransac.sample_indices = draws
+    try:
+        for flag in (False, True):
+            cfg = _huber_off(slam_config(), bootstrap_model_select=flag)
+            loop = make_slam(cfg, intr, dev)
+            draws.log, draws.queue = [], None
+            snaps, first, infos = [], [], []
+            for f in on_card:
+                snaps.append(snapshot(loop))
+                first.append(len(draws.log))
+                infos.append(loop.process(f))
+            snaps.append(snapshot(loop))
+            first.append(len(draws.log))
+            scan = make_slam(cfg, intr, dev)
+            bad, d_map, d_pose = [], 0, 0.0
+            for i, f in enumerate(on_card):
+                state, prev_pose, culled = snaps[i]
+                scan.set_state(state)
+                scan._prev_pose, scan._culled_slots = prev_pose, set(culled)
+                draws.queue = draws.log[first[i]:first[i + 1]]
+                got = scan.process_chunk(f[None])
+                want = infos[i]
+                if draws.queue or bool(got["keyframe"][0]) != want["keyframe"] or \
+                        int(got["num_inliers"][0]) != want["num_inliers"] or \
+                        not torch.equal(scan.state.counters, snaps[i + 1][0].counters):
+                    bad.append(i)
+                d_map = max(d_map, abs(int(got["map_inliers"][0]) - want["map_inliers"]))
+                d_pose = max(d_pose, *(float(np.abs(got[k][0] - want[k]).max())
+                                       for k in ("pose_R", "pose_t")))
+            draws.queue = None
+            if bad or d_map > INLIER_TOL or d_pose > CHUNK_POSE_TOL:
+                raise AssertionError(f"chunk 1 vs process (bootstrap_model_select={flag}): "
+                                     f"frames {bad[:10]} differ, map inliers by {d_map}, "
+                                     f"poses by {d_pose:.3g}")
+            free = make_slam(cfg, intr, dev)
+            steps = [free.process_chunk(f[None]) for f in on_card]
+            parted = [i for i, (o, w) in enumerate(zip(steps, infos))
+                      if bool(o["keyframe"][0]) != w["keyframe"]
+                      or int(o["map_inliers"][0]) != w["map_inliers"]]
+            print(f"phase chunk 1 vs process eval_seq (bootstrap_model_select={flag}, huber "
+                  f"0): {len(frames)} steps from process's state with its draws, decisions, "
+                  f"RANSAC inliers and counters identical, map inliers within {d_map}, poses "
+                  f"within {d_pose:.3g} (tolerances {INLIER_TOL}, {CHUNK_POSE_TOL}); run free "
+                  f"(not held) keyframes "
+                  f"{'equal' if free.keyframe_frames == loop.keyframe_frames else 'differ'}, "
+                  f"first frame whose decision or map inliers differ "
+                  f"{parted[0] if parted else 'none'}")
+    finally:
+        ransac.sample_indices = draws.draw
+
+
+def chunk_syncs(dev, seqs, card):
+    """The synchronizing calls of one chunk of CHUNK eval_seq frames (the
+    second chunk: tracking, map tracking, inserts) from
+    torch.cuda.set_sync_debug_mode, inside the scan's frame loop and in the
+    whole process_chunk (its readback, BA), each by the line that made it."""
+    frames, intr, _ = seqs["eval_seq"]
+    on_card = torch.as_tensor(frames[:2 * CHUNK]).to(dev)
+    slam = make_slam(slam_config(), intr, dev)
+    slam.process_chunk(on_card[:CHUNK])
+    scan, inside = slam._chunk_scan, []
+
+    def watched(*args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = scan(*args)
+        inside.extend(caught)
+        return out
+
+    slam._chunk_scan = watched
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            slam.process_chunk(on_card[CHUNK:])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    caught = inside + caught
+
+    def sites(ws):
+        out = {}
+        for w in ws:
+            path = Path(w.filename).resolve()
+            key = f"{path.relative_to(ROOT) if path.is_relative_to(ROOT) else path}:{w.lineno}"
+            out[key] = out.get(key, 0) + 1
+        return dict(sorted(out.items()))
+
+    print(f"sync: one chunk of {CHUNK} eval_seq frames makes {len(caught)} synchronizing calls "
+          f"({len(caught) / CHUNK:.1f} per frame), {len(inside)} inside the scan's frame loop "
+          f"({len(inside) / CHUNK:.1f} per frame); the per-frame path's are on the "
+          f"'sync: SLAM' line")
+    print(f"sync: inside the frame loop, by line: {json.dumps(sites(inside))}")
+    print(f"sync: the chunk's readback and BA, by line: "
+          f"{json.dumps(sites(caught[len(inside):]))}")
+
+
+def homography_vs_cpu(dev, seqs, card):
+    """The E/H bootstrap on the card against the port's CPU from the same
+    inputs and draws: every eval_seq frame tracked against the bootstrap
+    keyframe alone (frames 1-3), select_model and ransac_homography; R, t
+    within HOMOG_TOL, H up to sign within HOMOG_TOL, the same inliers,
+    used_homography and ambiguous."""
+    from pislam_tpu_torch import matching
+    from pislam_tpu_torch.geometry import homography, ransac
+
+    frames, intr, _ = seqs["eval_seq"]
+    cfg = slam_config()
+    vc, mc = cfg.vo, cfg.matcher
+    slam = make_slam(dataclasses.replace(cfg, vo=dataclasses.replace(
+        vc, bootstrap_model_select=True)), intr, dev)
+    slam.process(frames[0])
+    last = slam._last
+    worst, used = 0.0, []
+    for i in range(1, 4):
+        feats, pts = slam._features(frames[i])
+        idx2, _ = matching.match(last["desc"], feats.descriptors, last["valid"],
+                                 feats.valid, max_distance=mc.max_distance, ratio=mc.ratio,
+                                 cross_check=mc.cross_check)
+        ok = idx2 >= 0
+        p2 = pts[torch.clamp(idx2, min=0).long()]
+        gen = torch.Generator(device=dev).manual_seed(i)
+        idx_e = ransac.sample_indices(ok, vc.ransac_iters, 8, gen)
+        idx_h = ransac.sample_indices(ok, vc.ransac_iters, 4, gen)
+        outs = []
+        for d in (dev, "cpu"):
+            args = [x.to(d) for x in (last["pts"], p2, ok)]
+            sel = homography.select_model(*args, iters=vc.ransac_iters,
+                                          e_threshold=vc.inlier_threshold,
+                                          h_threshold=vc.inlier_threshold,
+                                          idx_e=idx_e.to(d), idx_h=idx_h.to(d))
+            oh = homography.ransac_homography(*args, iters=vc.ransac_iters,
+                                              inlier_threshold=vc.inlier_threshold,
+                                              idx=idx_h.to(d))
+            outs.append((sel, oh))
+        (sel, oh), (sel_c, oh_c) = outs
+        for a, b in ((sel, sel_c), (oh, oh_c)):
+            for k in ("inliers", "num_inliers", "used_homography", "ambiguous"):
+                if k in a and not torch.equal(a[k].cpu(), b[k]):
+                    raise AssertionError(f"homography frame {i}: {k} differs card vs CPU")
+            for k in ("R", "t", "R2", "t2"):
+                worst = max(worst, float((a[k].cpu() - b[k]).abs().max()))
+        h, h_c = oh["H"].cpu(), oh_c["H"]
+        sign = 1.0 if float((h * h_c).sum()) >= 0 else -1.0
+        worst = max(worst, float((sign * h - h_c).abs().max()))
+        if worst > HOMOG_TOL:
+            raise AssertionError(f"homography frame {i}: card vs CPU differ by {worst:.3g}")
+        used.append(bool(sel["used_homography"]))
+    print(f"phase chunk homography bootstrap eval_seq frames 1-3: card vs CPU from the same "
+          f"inputs and draws, inliers, used_homography {used} and ambiguous identical; R, t "
+          f"and H (up to sign) within {worst:.3g} (tolerance {HOMOG_TOL})")
+
+
+def _states_differ(a, b, rel=False):
+    """Integer tables of two states that differ, and the largest float
+    difference (relative to size with ``rel``)."""
+    bad, worst = [], 0.0
+    for tname in ("store", "lmap", "obs"):
+        ta, tb = getattr(a, tname), getattr(b, tname)
+        for field, x, y in zip(ta._fields, ta, tb):
+            x, y = x.cpu(), y.cpu()
+            if x.is_floating_point():
+                d = (x - y).abs() / (torch.clamp(y.abs(), min=1.0) if rel else 1.0)
+                worst = max(worst, float(d.max()) if d.numel() else 0.0)
+            elif not torch.equal(x, y):
+                bad.append(f"{tname}.{field}")
+    if not torch.equal(a.counters.cpu(), b.counters.cpu()):
+        bad.append("counters")
+    return bad, worst
+
+
+def log_counts(slam):
+    """Wraps a KeyframeSLAM's RANSAC and map-tracking calls; ``pop()`` on the
+    returned object gives (RANSAC inliers, map inliers) summed over the
+    calls since the last pop (0 for a call not made)."""
+    log = {"_localise_against": [], "_track_map": []}
+    for name, pick in (("_localise_against", lambda out: int(out[0]["num_inliers"])),
+                       ("_track_map", lambda out: int(out[2]))):
+        def logging(*args, _fn=getattr(slam, name), _log=log[name], _pick=pick, **kw):
+            out = _fn(*args, **kw)
+            _log.append(_pick(out))
+            return out
+        setattr(slam, name, logging)
+
+    class Counts:
+        def pop(self):
+            out = tuple(sum(v) for v in log.values())
+            for v in log.values():
+                v.clear()
+            return out
+
+    return Counts()
+
+
+def maintenance_and_merge(dev, seqs, card):
+    """The service's long-session housekeeping and a multi-session merge on
+    the card, each operation replayed on the CPU from the card's state
+    before it (with the card's RANSAC draws): eval_seq4 frames 0-111 in
+    chunks of 8 at the small tables of tests/test_service.py, with
+    cull_keyframes(max_cull=2), cull_landmarks, evict_stale_landmarks(256)
+    and compact every 2 inserts (the eviction must fire); then frames
+    96-223 as their own session (seed 99) merged into it. Equal integer
+    tables and results, floats within MAINT_TOL; the merge's
+    relocalisations each on the CPU (the same anchors, RANSAC inliers within
+    INLIER_TOL), then the merge from the card's anchors (floats within
+    MAINT_TOL of their size)."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch import evaluation
+    from pislam_tpu_torch.geometry import ransac
+
+    frames, intr, gt = seqs["eval_seq4"]
+    on_card = torch.as_tensor(frames).to(dev)
+    cfg = slam_config()
+    cfg = dataclasses.replace(cfg, map=dataclasses.replace(
+        cfg.map, max_landmarks=MAINT_LANDMARKS, max_obs=MAINT_OBS))
+    ops = (("cull_keyframes", {"max_cull": 2}), ("cull_landmarks", {}),
+           ("evict_stale_landmarks", {"min_free": MAINT_MIN_FREE}), ("compact", {}))
+    cpu = pt.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                          device="cpu")
+    draws = Draws(ransac.sample_indices)
+    ransac.sample_indices = draws
+    try:
+        a = make_slam(cfg, intr, dev)
+        last, totals, worst, passes = 0, {name: 0 for name, _ in ops}, 0.0, 0
+        for i in range(0, MAINT_FRAMES, CHUNK):
+            a.process_chunk(on_card[i:i + CHUNK])
+            if a.keyframes_inserted - last < MAINT_EVERY:
+                continue
+            last, passes = a.keyframes_inserted, passes + 1
+            for name, kw in ops:
+                snap = snapshot(a)
+                got = getattr(a, name)(**kw)
+                adopt(cpu, snap)
+                want = getattr(cpu, name)(**kw)
+                bad, d = _states_differ(a.state, cpu.state)
+                worst = max(worst, d)
+                if got != want or bad or d > MAINT_TOL or a._culled_slots != cpu._culled_slots:
+                    raise AssertionError(f"{name} after frame {i + CHUNK - 1}: card {got}, CPU "
+                                         f"{want}, tables {bad}, floats by {d:.3g}")
+                if name == "cull_keyframes":
+                    totals[name] += len(got)
+                elif name != "compact":
+                    totals[name] += got
+        if totals["evict_stale_landmarks"] <= 0:
+            raise AssertionError(f"the eviction never fired: {totals}")
+        print(f"phase chunk housekeeping eval_seq4 frames 0-{MAINT_FRAMES - 1} (tables "
+              f"{MAINT_LANDMARKS}/{MAINT_OBS}): {passes} passes every {MAINT_EVERY} inserts, "
+              f"keyframes culled {totals['cull_keyframes']}, landmarks culled "
+              f"{totals['cull_landmarks']}, evicted {totals['evict_stale_landmarks']}; "
+              f"each operation on the CPU from the card's state: results and integer tables "
+              f"identical, floats within {worst:.3g} (tolerance {MAINT_TOL})")
+
+        b = pt.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                            seed=99, device=dev)
+        run_chunks(b, on_card[MERGE_FROM:])
+        snap, first, base = snapshot(a), len(draws.log), a.keyframes_inserted
+        relocs, counts = [], log_counts(a)
+        reloc = a._relocalise_feats
+
+        def logging(feats, pts, min_matches=30):
+            rec = reloc(feats, pts, min_matches=min_matches)
+            relocs.append((feats, pts, min_matches, rec, counts.pop()))
+            return rec
+
+        a._relocalise_feats = logging
+        t0 = time.perf_counter()
+        merged = a.merge_map(b.state)
+        torch.cuda.synchronize()
+        t_merge = time.perf_counter() - t0
+        for name in ("_relocalise_feats", "_localise_against", "_track_map"):
+            delattr(a, name)
+        # each relocalisation of the other session's keyframes on the CPU
+        # from the card's state and draws: the same anchors, against the same
+        # keyframes, RANSAC inliers within INLIER_TOL. Their poses are read,
+        # not held: B's first keyframes are A's own frames, so their
+        # essential solve has no parallax and an arbitrary translation
+        # direction (each SVD picks its own), which map tracking then starts
+        # from
+        adopt(cpu, snap)
+        draws.queue = [d.cpu() for d in draws.log[first:]]
+        cpu_counts = log_counts(cpu)
+        bad, apart = [], []
+        for i, (feats, pts, mm, rec, (n_inl, n_map)) in enumerate(relocs):
+            got = cpu._relocalise_feats(type(feats)(*(x.cpu() for x in feats)), pts.cpu(),
+                                        min_matches=mm)
+            c_inl, c_map = cpu_counts.pop()
+            if (got is None) != (rec is None) or (rec is not None and got[2] != rec[2]):
+                bad.append(f"keyframe {i}: relocalised against {rec and rec[2]} on the card, "
+                           f"{got and got[2]} on the CPU")
+            elif rec is not None:
+                if abs(n_inl - c_inl) > INLIER_TOL:
+                    bad.append(f"keyframe {i}: RANSAC inliers {n_inl} card, {c_inl} CPU")
+                d = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                        for x, y in zip(got[:2], rec[:2]))
+                if d > SLAM_POSE_TOL:
+                    apart.append(f"{i}: {d:.2g}, inliers {n_inl}/{n_map} vs {c_inl}/{c_map}")
+        for name in ("_localise_against", "_track_map"):
+            delattr(cpu, name)
+        if draws.queue:
+            bad.append(f"{len(draws.queue)} RANSAC draws unused")
+        # the merge itself on the CPU from the card's state and anchors
+        adopt(cpu, snap)
+        anchors = [r[3] for r in relocs]
+        cpu._relocalise_feats = lambda *args, **kw: anchors.pop(0)
+        want = cpu.merge_map(b.state)
+        del cpu._relocalise_feats
+        tables, d = _states_differ(a.state, cpu.state, rel=True)
+        if merged != want or merged <= 0 or bad or tables or d > MAINT_TOL:
+            raise AssertionError(f"merge_map: card {merged}, CPU {want}, {bad[:5]}, tables "
+                                 f"{tables}, floats by {d:.3g}")
+    finally:
+        ransac.sample_indices = draws.draw
+    views = a.keyframes
+    kgt = gt[[v.frame if v.index < base else v.frame + MERGE_FROM for v in views]]
+    ate = evaluation.ate_rmse(a.keyframe_positions(), kgt, with_scale=True)
+    print(f"phase chunk merge eval_seq4 frames {MERGE_FROM}-{len(frames) - 1} (seed 99, "
+          f"{b.num_keyframes} keyframes) into frames 0-{MAINT_FRAMES - 1}: {merged} keyframes "
+          f"merged ({len(views)} in the map), keyframe ATE with scale {ate:.4f}; on the CPU "
+          f"from the card's state and draws: {len(relocs)} relocalisations, the same anchors, "
+          f"RANSAC inliers within {INLIER_TOL}; not held, {len(apart)} poses apart by more "
+          f"than {SLAM_POSE_TOL} (keyframe: max |diff|, RANSAC/map inliers card vs CPU: "
+          f"{'; '.join(apart) or '-'}); from the card's anchors "
+          f"the same count and integer tables, floats within {d:.3g} of their size "
+          f"(tolerance {MAINT_TOL}); merge_map {t_merge * 1e3:.1f} ms [{card}]")
+
+
+class Tap:
+    """Stands in for a module's function and keeps every call's arguments
+    and result, on any device, with the index of the first RANSAC draw it
+    made."""
+
+    def __init__(self, module, name, draws):
+        self.module, self.name, self.fn, self.draws = module, name, getattr(module, name), draws
+        self.calls = []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        first = len(self.draws.log) if self.draws.queue is None else None
+        out = self.fn(*args, **kw)
+        self.calls.append((args, kw, out, first))
+        return out
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def _tensors(x, name=""):
+    """(name, tensor) pairs of a structure of tensors: dict keys, NamedTuple
+    fields and positions name them."""
+    if torch.is_tensor(x):
+        return [(name, x)]
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in _tensors(v, f"{name}.{k}".lstrip("."))]
+    if isinstance(x, (tuple, list)):
+        keys = getattr(x, "_fields", range(len(x)))
+        return [p for k, v in zip(keys, x) for p in _tensors(v, f"{name}.{k}".lstrip("."))]
+    return []
+
+
+def _diffs(a, b):
+    """Per tensor of two matching structures: name=the largest |difference|
+    of a float tensor/its largest |value|, or the count of differing elements
+    of an integer one."""
+    out = []
+    for (name, x), (_, y) in zip(_tensors(a), _tensors(b)):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if x.shape != y.shape:
+            out.append(f"{name}=shape")
+        elif x.is_floating_point():
+            d = float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+            out.append(f"{name}={d:.2g}/{float(y.abs().max()) if y.numel() else 0.0:.2g}")
+        else:
+            out.append(f"{name}={int((x != y).sum())}!=")
+    return " ".join(out)
+
+
+def f1_probe(dev, seqs, card):
+    """ROADMAP F1, a reading that holds nothing: eval_seq2 from the card's
+    state after frame 2 with the card's draws, frames 3 (the first insert
+    after the bootstrap: triangulation and the first windowed BA) and 4
+    (the first map-tracking PnP), on the card and on the CPU. For each call
+    of RANSAC, triangulation, motion-only BA and BA: how far the CPU's
+    inputs and outputs lie from the card's (max |diff| / max |value| per
+    tensor; n!= for integer tensors), and how far the CPU's outputs lie from
+    the card's when the CPU runs the card's own inputs."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.backend import ba, pnp, triangulate
+    from pislam_tpu_torch.geometry import ransac
+
+    frames, intr, _ = seqs["eval_seq2"]
+    cfg = slam_config()
+    draws = Draws(ransac.sample_indices)
+    ransac.sample_indices = draws
+    taps = [Tap(m, n, draws) for m, n in ((ransac, "ransac_essential"),
+                                          (triangulate, "triangulate_two_view"),
+                                          (pnp, "motion_only_ba"), (ba, "bundle_adjust"))]
+    try:
+        slam = make_slam(cfg, intr, dev)
+        for f in frames[:3]:
+            slam.process(f)
+        snap, first = snapshot(slam), len(draws.log)
+        for tap in taps:
+            tap.calls = []
+        card_out = [slam.process(f) for f in frames[3:5]]
+        card_calls = {tap.name: tap.calls for tap in taps}
+        cpu = pt.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                              device="cpu")
+        adopt(cpu, snap)
+        draws.queue = [d.cpu() for d in draws.log[first:]]
+        for tap in taps:
+            tap.calls = []
+        cpu_out = [cpu.process(f) for f in frames[3:5]]
+        cpu_calls = {tap.name: tap.calls for tap in taps}
+        for tap in taps:
+            for i, ((a_args, a_kw, a_out, a_first), (b_args, b_kw, b_out, _)) in enumerate(
+                    zip(card_calls[tap.name], cpu_calls[tap.name])):
+                kw = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in a_kw.items()}
+                if tap.name == "ransac_essential":
+                    kw["idx"], kw["generator"] = draws.log[a_first].cpu(), None
+                host_args = type(a_args[0])(*(None if x is None else x.cpu() for x in a_args[0])) \
+                    if tap.name == "bundle_adjust" else a_args[0].cpu()
+                rest = tuple(x.cpu() if torch.is_tensor(x) else x for x in a_args[1:])
+                same_in = tap.fn(host_args, *rest, **kw)
+                print(f"F1 eval_seq2 {tap.name} call {i}: inputs {_diffs(a_args, b_args)}, "
+                      f"outputs {_diffs(a_out, b_out)}; the CPU on the card's inputs: outputs "
+                      f"{_diffs(a_out, same_in)}")
+    finally:
+        ransac.sample_indices = draws.draw
+        for tap in taps:
+            tap.restore()
+    for i, (c, p) in enumerate(zip(card_out, cpu_out)):
+        print(f"F1 eval_seq2 frame {3 + i}: keyframe {c['keyframe']}/{p['keyframe']}, inliers "
+              f"{c['num_inliers']}/{p['num_inliers']}, map inliers {c['map_inliers']}/"
+              f"{p['map_inliers']} (card/CPU); pose differs by "
+              f"{max(float(np.abs(c[k] - p[k]).max()) for k in ('pose_R', 'pose_t')):.3g} "
+              f"[{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -1612,11 +2191,19 @@ def main():
     # phase 5: the VO path
     vo_path(dev, seqs, card)
 
-    # phase 6: the SLAM path (the main path), and SLAM with the unfused frontend
-    launches, slam_res, default_feats = slam_path(dev, seqs, card)
+    # phase 6: the SLAM path, and SLAM with the unfused frontend
+    slam_launches, slam_res, default_feats = slam_path(dev, seqs, card)
     unfused_launches = slam_unfused(dev, seqs, (default_feats, slam_res["eval_seq"]["kf"]))
 
-    # phase 7: times
+    # phase 7: the chunk path (the main path), chunk 1 against process, the
+    # E/H bootstrap, the housekeeping and the merge, card against CPU
+    launches = chunk_path(dev, seqs, card, slam_res)
+    chunk1_vs_process(dev, seqs, card)
+    homography_vs_cpu(dev, seqs, card)
+    maintenance_and_merge(dev, seqs, card)
+    f1_probe(dev, seqs, card)
+
+    # phase 8: times
     for label, cfg in cfgs.items():
         frame = frames[label][0].to(dev)
         pyr = results[label][0][0]
@@ -1662,12 +2249,15 @@ def main():
     vo_stage_times(dev, seqs, card)
     vo_profile(dev, seqs, card)
     slam_profile(dev, seqs, card)
+    chunk_syncs(dev, seqs, card)
 
     # the kernels at the eval shapes, each with its launches on its path: the
-    # SLAM path for K1, K2, orb_describe and K5, SLAM with the unfused
-    # frontend for K6, the dense BRIEF extraction for K3 and K4d; K4 alone,
-    # K3c and K3a run on no path
-    paths = {name: ("SLAM", launches) for name in FUSED_PATH_KERNELS}
+    # chunk path for K1, K2, orb_describe and K5 (phase 6's per-frame counts
+    # are on its launches line), SLAM with the unfused frontend for K6, the
+    # dense BRIEF extraction for K3 and K4d; K4 alone, K3c and K3a run on no
+    # path
+    print(f"SLAM per-frame path launches: {json.dumps(slam_launches)}")
+    paths = {name: (f"SLAM chunks of {CHUNK}", launches) for name in FUSED_PATH_KERNELS}
     paths["reduce_codes_4x"] = ("SLAM unfused", unfused_launches)
     for name in ("gather_windows_packed", "orb_select_bits"):
         paths[name] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])

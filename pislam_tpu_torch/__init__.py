@@ -5,7 +5,9 @@ A port of ``pislam_tpu`` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA
 Hopper GPU: pyramid construction, FAST-9 + Harris + NMS, top-k selection,
 orientation and rotated BRIEF, Hamming matching, RANSAC essential and
 frame-to-frame pose chaining, and keyframe SLAM (map tracking, keyframe
-insertion with windowed bundle adjustment, pose graph, loop closure). The
+insertion with windowed bundle adjustment, the chunked device-resident
+tracking scan, the E/H homography bootstrap, map housekeeping, pose graph,
+loop closure and multi-session map merging). The
 TPU kernels are CUDA kernels written for sm_90a (``ops/kernels.py``,
 ``csrc/``); every kernel has a plain PyTorch version, which runs on the CPU
 and is what the kernels are held to. Entry points run on the card unless
@@ -29,8 +31,10 @@ from .frontend import (  # noqa: F401
     make_extract_fn,
     tables_from_numpy,
 )
+from .geometry import homography  # noqa: F401
 from .matching import match, match_features, match_gated, match_many  # noqa: F401
 from .models.slam import KeyframeSLAM, SlamState, slam_state_from_numpy  # noqa: F401
+from .models.slam_scan import make_slam_track_scan  # noqa: F401
 from .models.visual_odometry import (  # noqa: F401
     VisualOdometry,
     VOState,

@@ -74,7 +74,7 @@ def set_drop(x, idx, src):
     n = x.shape[0]
     buf = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
     idx = torch.clamp(idx.long(), max=n)
-    src = torch.as_tensor(src, dtype=x.dtype, device=x.device)
+    src = _like(x, src)
     return buf.index_copy(0, idx, src.expand((idx.shape[0],) + x.shape[1:]))[:n]
 
 
@@ -84,14 +84,29 @@ def add_drop(x, idx, src):
     n = x.shape[0]
     buf = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
     idx = torch.clamp(idx.long(), max=n)
-    src = torch.as_tensor(src, dtype=x.dtype, device=x.device)
+    src = _like(x, src)
     return buf.index_add(0, idx, src.expand((idx.shape[0],) + x.shape[1:]))[:n]
+
+
+def _like(x, src):
+    """``src`` as a tensor of ``x``'s dtype on its device. A Python number
+    becomes a fill: copying it from the host would wait on the card."""
+    if isinstance(src, (bool, int, float)):
+        return torch.full((), src, dtype=x.dtype, device=x.device)
+    return torch.as_tensor(src, dtype=x.dtype, device=x.device)
 
 
 def _rows(slot, device):
     """A slot (int or 0-dim tensor) as a (1,) int64 index: indexing by a
     0-dim CUDA tensor would read it back to the host."""
-    return torch.as_tensor(slot, device=device).reshape(1).long()
+    if torch.is_tensor(slot):
+        return slot.to(device).reshape(1).long()
+    return torch.full((1,), int(slot), dtype=torch.int64, device=device)
+
+
+def row(x, slot):
+    """``x[slot]`` for an int or a 0-dim tensor slot, which is not read back."""
+    return x.index_select(0, _rows(slot, x.device))[0] if torch.is_tensor(slot) else x[slot]
 
 
 def empty_store(capacity: int, max_kp: int, words: int = 8, device="cpu") -> KeyframeStore:
@@ -141,7 +156,7 @@ def insert_keyframe(store: KeyframeStore, slot, R, t, feats, frame_id,
     i = _rows(slot, store.R.device)
 
     def put(x, v):
-        v = torch.as_tensor(v, dtype=x.dtype, device=x.device)
+        v = _like(x, v)
         return x.index_copy(0, i, v.reshape((1,) + x.shape[1:]))
 
     return KeyframeStore(

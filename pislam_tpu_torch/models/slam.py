@@ -16,18 +16,23 @@ keyframe store, neighbourhood PnP, observation fusion, then three rounds of
 global BA + landmark culling with and without a pose-graph step first; the
 branch whose map is more self-consistent wins.
 
-``KeyframeSLAM`` is orchestrated on the host by design, as in the JAX
-package: it reads the inlier counts, the pose and the map counters per frame
-and copies the observation tables to numpy for each BA. The state functions
-(``insert_keyframe_state``, ``track_map_state``, the BA and pose-graph
-solvers) read nothing back. The RANSAC samples come from a
-``torch.Generator`` on the device, carried in the state where the JAX
-package carries its PRNG key; its draws differ from ``jax.random``'s.
+``KeyframeSLAM.process`` is orchestrated on the host by design, as in the
+JAX package: it reads the inlier counts, the pose and the map counters per
+frame and copies the observation tables to numpy for each BA.
+``process_chunk`` runs a chunk of frames through the same state functions
+with every per-frame decision kept on the device (``models/slam_scan.py``)
+and reads back once per chunk. The state functions (``insert_keyframe_state``,
+``track_map_state``, the BA and pose-graph solvers) read nothing back. The
+RANSAC samples come from a ``torch.Generator`` on the device, carried in the
+state where the JAX package carries its PRNG key; its draws differ from
+``jax.random``'s. With ``vo.bootstrap_model_select`` every tracked frame
+draws the essential and the homography samples, and the homography's are
+used while only the bootstrap keyframe exists (``geometry/homography.py``).
 
-Not in this port yet: ``process_chunk`` (``models/slam_scan.py``),
-``merge_map``, checkpoints, the service's housekeeping (``cull_keyframes``,
-``compact``, ``evict_stale_landmarks``, ``retriangulate_landmarks``) and the
-E/H bootstrap (``geometry/homography.py``).
+The map's housekeeping (``cull_keyframes``, ``compact``,
+``evict_stale_landmarks``, ``retriangulate_landmarks``) and multi-session
+``merge_map`` are host orchestration over the backend's functions, as in the
+JAX package. Not in this port yet: checkpoints.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from ..backend import ba, pnp, pose_graph, triangulate
 from ..backend import keyframes as kfs
 from ..config import PislamConfig
 from ..frontend import Features
-from ..geometry import ransac, se3
+from ..geometry import homography, ransac, se3
 from ..utils.metrics import NullMetrics
 from .visual_odometry import VisualOdometry
 
@@ -87,11 +92,12 @@ def init_state(cfg: PislamConfig, seed: int = 7, device="cuda") -> SlamState:
 
 
 def insert_keyframe_state(cap: int, st: SlamState, feats: Features, pts, R, t, idx2,
-                          inliers, prev_slot: int, map_idx, refresh_desc: bool = False):
+                          inliers, prev_slot, map_idx, refresh_desc: bool = False):
     """Pure keyframe insertion: SlamState -> SlamState, with no host read.
 
     Writes the keyframe ring slot, triangulates inlier matches against the
-    previous keyframe (slot ``prev_slot``) into new landmarks, and appends
+    previous keyframe (slot ``prev_slot``, an int or a 0-dim tensor) into
+    new landmarks, and appends
     observation rows. Features already associated with a landmark by map
     tracking (``map_idx``) get an observation row instead of a duplicate
     landmark.
@@ -103,9 +109,9 @@ def insert_keyframe_state(cap: int, st: SlamState, feats: Features, pts, R, t, i
     # otherwise feed BA with a stale pose
     evict = num_kf >= cap
     obs = st.obs._replace(valid=st.obs.valid & ~(evict & (st.obs.kf == slot)))
-    prev_R, prev_t = st.store.R[prev_slot], st.store.t[prev_slot]
-    p1 = st.store.pts[prev_slot]
-    prev_kp_valid = st.store.kp_valid[prev_slot]
+    prev_R, prev_t = kfs.row(st.store.R, prev_slot), kfs.row(st.store.t, prev_slot)
+    p1 = kfs.row(st.store.pts, prev_slot)
+    prev_kp_valid = kfs.row(st.store.kp_valid, prev_slot)
     store = kfs.insert_keyframe(st.store, slot, R, t, feats, frame_id, pts=pts,
                                 ordinal=num_kf)
     # triangulate inlier matches prev_kf -> new_kf into landmarks
@@ -172,15 +178,16 @@ def track_map_state(cfg: PislamConfig, lmap: kfs.LandmarkMap, feats: Features, p
     return out["R"], out["t"], out["num_inliers"], assoc
 
 
-def keyframe_step_prior(store: kfs.KeyframeStore, num_kf: int, cap: int):
+def keyframe_step_prior(store: kfs.KeyframeStore, num_kf, cap: int):
     """Per-frame camera speed over the last keyframe interval (map units):
     |c_kf[-1] - c_kf[-2]| / frame gap, 0 with fewer than two valid
-    keyframes. A 0-dim tensor."""
+    keyframes. ``num_kf`` is an int or a 0-dim tensor; a 0-dim tensor."""
     sA, sB = (num_kf - 1) % cap, (num_kf - 2) % cap
-    cA = -(store.R[sA].T @ store.t[sA])
-    cB = -(store.R[sB].T @ store.t[sB])
-    gap = (store.frame_id[sA] - store.frame_id[sB]).to(torch.float32)
-    ok = store.valid[sA] & store.valid[sB] & (gap > 0) & (num_kf >= 2)
+    cA = -(kfs.row(store.R, sA).T @ kfs.row(store.t, sA))
+    cB = -(kfs.row(store.R, sB).T @ kfs.row(store.t, sB))
+    gap = (kfs.row(store.frame_id, sA) - kfs.row(store.frame_id, sB)).to(torch.float32)
+    ok = (kfs.row(store.valid, sA) & kfs.row(store.valid, sB) & (gap > 0)
+          & (num_kf >= 2))
     s = torch.linalg.vector_norm(cA - cB) / torch.clamp(gap, min=1.0)
     return torch.where(ok & torch.isfinite(s), s, 0.0)
 
@@ -211,9 +218,6 @@ class KeyframeSLAM:
                  keyframe_min_inliers: int = 60, keyframe_max_gap: int = 10,
                  seed: int = 7, metrics=None, reloc_min_matches: int = 30,
                  mapping: bool = True, dist=None, device="cuda"):
-        if cfg.vo.bootstrap_model_select:
-            raise NotImplementedError(
-                "vo.bootstrap_model_select needs geometry/homography.py, not ported yet")
         self.cfg = cfg
         self.metrics = metrics if metrics is not None else NullMetrics()
         self.vo = VisualOdometry(cfg, fx, fy, cx, cy, features_fn=features_fn, dist=dist,
@@ -249,9 +253,11 @@ class KeyframeSLAM:
         self._insert = partial(insert_keyframe_state, self.capacity,
                                refresh_desc=cfg.map.refresh_descriptors)
         self._track_map = partial(track_map_state, cfg)
-        # slots invalidated by keyframe culling, from a restored state (an
-        # insert that reuses the slot removes it again)
+        # slots invalidated by keyframe culling (an insert that reuses the
+        # slot removes it again)
         self._culled_slots: set = set()
+        self._has_image_frontend = features_fn is None
+        self._chunk_scan = None  # built by the first process_chunk
 
     def _store_counts(self, store: kfs.KeyframeStore, feats: Features):
         mc = self.cfg.matcher
@@ -284,10 +290,6 @@ class KeyframeSLAM:
             self._last = None
             self._prev_pose = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
 
-    def process_chunk(self, frames):
-        raise NotImplementedError(
-            "process_chunk needs models/slam_scan.py, not ported yet")
-
     def _cache_last(self, slot: int):
         st = self._st.store
         self._last = {"slot": slot, "desc": st.descriptors[slot],
@@ -302,15 +304,31 @@ class KeyframeSLAM:
     def _features(self, frame):
         return self.vo.frontend(frame)
 
-    def _localise_against(self, desc, valid, ref_pts, feats, pts):
+    def _localise_against(self, desc, valid, ref_pts, feats, pts, tracking: bool = False):
         """RANSAC essential pose of ``feats`` vs a reference feature block;
-        the samples come from the state's generator."""
+        the samples come from the state's generator. A ``tracking`` call with
+        ``vo.bootstrap_model_select`` draws the essential and the homography
+        samples and runs the E/H selection (``homography.select_model``)
+        while only the bootstrap keyframe exists, as the chunk scan does."""
+        vc = self.cfg.vo
         idx2, _ = self._match(desc, feats.descriptors, valid, feats.valid)
         ok = idx2 >= 0
         p2 = pts[torch.clamp(idx2, min=0).long()]
-        out = ransac.ransac_essential(
-            ref_pts, p2, ok, iters=self.cfg.vo.ransac_iters,
-            inlier_threshold=self.cfg.vo.inlier_threshold, generator=self._st.generator)
+        gen = self._st.generator
+        if tracking and vc.bootstrap_model_select:
+            idx_e = ransac.sample_indices(ok, vc.ransac_iters, 8, gen)
+            idx_h = ransac.sample_indices(ok, vc.ransac_iters, 4, gen)
+            if self._num_kf == 1:
+                out = homography.select_model(
+                    ref_pts, p2, ok, iters=vc.ransac_iters,
+                    e_threshold=vc.inlier_threshold, h_threshold=vc.inlier_threshold,
+                    idx_e=idx_e, idx_h=idx_h)
+                return out, idx2
+        else:
+            idx_e = None
+        out = ransac.ransac_essential(ref_pts, p2, ok, iters=vc.ransac_iters,
+                                      inlier_threshold=vc.inlier_threshold, idx=idx_e,
+                                      generator=gen)
         return out, idx2
 
     def _slot_rows(self, slot: int):
@@ -345,7 +363,7 @@ class KeyframeSLAM:
         last = self._last
         with m.timer("track"):
             out, idx2 = self._localise_against(last["desc"], last["valid"], last["pts"],
-                                               feats, pts)
+                                               feats, pts, tracking=True)
             n_inl = int(out["num_inliers"])
         lost = n_inl < self.cfg.vo.min_inliers
         Rrel, trel = _host(out["R"]), _host(out["t"])
@@ -459,6 +477,94 @@ class KeyframeSLAM:
         m.gauge("num_observations", self._num_obs)
         return {"pose_R": R, "pose_t": t, "keyframe": make_kf, "num_inliers": n_inl,
                 "map_inliers": n_map, "lost": lost, "relocalised": relocalised}
+
+    def process_chunk(self, frames):
+        """Track a chunk of frames (T, H, W) uint8 with one readback
+        (``models/slam_scan.py``).
+
+        Extraction, matching, RANSAC, map PnP, the keyframe decision and the
+        insertion run per frame with every decision on the device; windowed
+        BA then runs once if the chunk inserted keyframes (the
+        local-mapping-thread pattern). Chunk size 1 makes ``process``'s
+        decisions from the same state (run free, the two part after some
+        frames on the card: ``process`` chains the pose in numpy on the host,
+        the scan on the device, and the rounding grows through map tracking
+        and BA); larger chunks defer BA to chunk boundaries. A chunk that
+        ends lost relocalises its last frame against the whole store here,
+        on the host, and promotes it to a recovery keyframe. Needs the image
+        frontend and mapping. Returns the per-frame outputs as numpy arrays
+        (pose_R, pose_t, keyframe, num_inliers, map_inliers)."""
+        if not self._has_image_frontend:
+            raise ValueError("process_chunk requires the image frontend "
+                             "(features_fn is host code)")
+        if not self.mapping:
+            raise ValueError(
+                "localization-only mode runs the per-frame loop: the scan tracks "
+                "against the newest stored keyframe and cannot re-target after "
+                "relocalisation without inserting")
+        if self._chunk_scan is None:
+            from .slam_scan import make_slam_track_scan
+            self._chunk_scan = make_slam_track_scan(
+                self.cfg, *self.vo.frontend.intrinsics,
+                keyframe_min_inliers=self.keyframe_min_inliers,
+                keyframe_max_gap=self.keyframe_max_gap, dist=self.vo.frontend.dist,
+                device=self.device)
+        frames = torch.as_tensor(frames).to(self.device)
+        m = self.metrics
+        n_kf_before, n_lm_before = self._num_kf, self._num_lm
+        with m.timer("scan_chunk"):
+            st, outs = self._chunk_scan(self.state, frames, self._num_kf)
+            self.set_state(st)  # the chunk's readback
+            outs = {k: _host(v) for k, v in outs.items()}
+        m.count("frames", frames.shape[0])
+        m.count("keyframes_inserted", self._num_kf - n_kf_before)
+        for R, t in zip(outs["pose_R"], outs["pose_t"]):
+            self.trajectory.append(-R.T @ t)
+        if self._num_kf > n_kf_before and self._num_kf >= 2:
+            with m.timer("insert_ba"):
+                self._local_ba()
+            if (self.cfg.map.chunk_retriangulate and frames.shape[0] > 1
+                    and self._num_lm > n_lm_before):
+                # landmarks made inside the chunk were triangulated against
+                # poses BA had not refined: re-triangulate from the refined
+                # poses and converge once more
+                with m.timer("insert_ba"):
+                    if self.retriangulate_landmarks(n_lm_before, self._num_lm):
+                        self._local_ba()
+        # chunk-boundary recovery: the store-wide relocalisation is host
+        # orchestration, so a chunk that ends lost relocalises its last frame
+        # here and promotes it to a recovery keyframe, which the next chunk
+        # tracks against. A bootstrap frame has 0 inliers but is a keyframe.
+        ninl = outs["num_inliers"]
+        if (ninl.shape[0] > 0 and int(ninl[-1]) < self.cfg.vo.min_inliers
+                and not bool(outs["keyframe"][-1]) and self._num_kf > 0):
+            m.count("frames_lost")
+            self.frames_lost += 1
+            with m.timer("relocalise"):
+                feats, pts = self._features(frames[-1])
+                rec = self._relocalise_feats(feats, pts, min_matches=self.reloc_min_matches)
+            if rec is not None:
+                R, t, kf_ord = rec
+                K = pts.shape[0]
+                self._frame_idx -= 1  # the frame id is the chunk's last frame
+                self._insert_keyframe(
+                    feats, pts, np.asarray(R, np.float32), np.asarray(t, np.float32),
+                    torch.full((K,), -1, dtype=torch.int32, device=self.device),
+                    torch.zeros(K, dtype=torch.bool, device=self.device),
+                    kf_ord % self.capacity)
+                self._frame_idx += 1
+                self._since_kf = 0
+                outs["pose_R"][-1] = R
+                outs["pose_t"][-1] = t
+                outs["keyframe"][-1] = True
+                self.trajectory[-1] = -np.asarray(R).T @ np.asarray(t)
+                m.count("relocalisations")
+                self.relocalisations += 1
+                m.count("keyframes_inserted")
+        m.gauge("num_keyframes", self.num_keyframes)
+        m.gauge("num_landmarks", self._num_lm)
+        m.gauge("num_observations", self._num_obs)
+        return outs
 
     def _insert_keyframe(self, feats, pts, R, t, idx2, inliers, prev_slot: int,
                          map_idx=None):
@@ -641,11 +747,130 @@ class KeyframeSLAM:
         self.metrics.count("landmarks_culled", culled)
         return culled
 
+    def retriangulate_landmarks(self, lm_lo: int, lm_hi: int) -> int:
+        """Re-triangulate the landmarks in slot range [lm_lo, lm_hi) from
+        their first two observations, at the current keyframe poses.
+
+        Landmarks made inside a chunk were triangulated against poses that
+        windowed BA had not refined yet; ``process_chunk`` runs this between
+        its two boundary BAs when ``map.chunk_retriangulate`` is set.
+        Degenerate results (behind a camera or not finite) keep their old
+        position. Returns the number of landmarks moved."""
+        if lm_hi <= lm_lo:
+            return 0
+        st = self._st
+        okf, olm, ouv, ovalid = (_host(x) for x in (st.obs.kf, st.obs.lm, st.obs.uv,
+                                                    st.obs.valid))
+        kf_valid, lmv = _host(st.store.valid), _host(st.lmap.valid)
+        sel = ovalid & (olm >= lm_lo) & (olm < lm_hi) & kf_valid[okf] & lmv[olm]
+        rows = np.nonzero(sel)[0]
+        if rows.size == 0:
+            return 0
+        # the first two observation rows of each landmark (append order is
+        # insertion order: the two views it was triangulated from)
+        order = rows[np.argsort(olm[rows], kind="stable")]
+        uniq, first, counts = np.unique(olm[order], return_index=True, return_counts=True)
+        has2 = counts >= 2
+        if not has2.any():
+            return 0
+        lms = uniq[has2]
+        r1, r2 = order[first[has2]], order[first[has2] + 1]
+        R, t = _host(st.store.R), _host(st.store.t)
+        R1, t1, R2, t2 = R[okf[r1]], t[okf[r1]], R[okf[r2]], t[okf[r2]]
+        tri = torch.func.vmap(lambda Ra, ta, Rb, tb, pa, pb: triangulate.triangulate_two_view(
+            Ra, ta, Rb, tb, pa[None], pb[None])[0])
+        X = _host(tri(*(torch.as_tensor(a, device=self.device)
+                        for a in (R1, t1, R2, t2, ouv[r1], ouv[r2]))))
+        z1 = np.einsum("nij,nj->ni", R1, X)[:, 2] + t1[:, 2]
+        z2 = np.einsum("nij,nj->ni", R2, X)[:, 2] + t2[:, 2]
+        ok = np.isfinite(X).all(1) & (z1 > 1e-4) & (z2 > 1e-4)
+        lms, X = lms[ok], X[ok]
+        if lms.size == 0:
+            return 0
+        lmap = st.lmap._replace(xyz=st.lmap.xyz.index_copy(
+            0, torch.as_tensor(lms.astype(np.int64), device=self.device),
+            torch.as_tensor(X, device=self.device)))
+        self._st = st._replace(lmap=lmap)
+        self.metrics.count("landmarks_retriangulated", int(lms.size))
+        return int(lms.size)
+
+    def evict_stale_landmarks(self, min_free: int = 0):
+        """Long-session map freshness: when fewer than ``min_free`` landmark
+        slots are free, invalidate the landmarks whose last observation is
+        oldest until ``min_free`` are free
+        (backend/keyframes.evict_stale_landmarks), then compact so the
+        triangulation cursor can use the freed slots. Returns the number
+        evicted."""
+        st = self._st
+        # count from the mask, not the cursor: culling invalidates rows
+        # without moving the cursor until compact() runs
+        need = min_free - (st.lmap.capacity - int(st.lmap.valid.sum()))
+        if need <= 0:
+            return 0
+        with self.metrics.timer("evict_stale"):
+            lmap, obs, n = kfs.evict_stale_landmarks(st.store, st.lmap, st.obs, need)
+            n = int(n)
+        self._st = st._replace(lmap=lmap, obs=obs)
+        self.metrics.count("landmarks_evicted", n)
+        if n:
+            self.compact()
+        return n
+
     def covisibility(self) -> np.ndarray:
         """(F, F) shared-landmark counts between keyframe slots (the
         ORB-SLAM covisibility graph)."""
         st = self._st
         return _host(kfs.covisibility(st.store, st.lmap, st.obs))
+
+    def cull_keyframes(self, max_cull: int = 1, protect_recent: int = 3,
+                       min_other_obs: int = 3, redundant_fraction: float = 0.9):
+        """Cull redundant keyframes (ORB-SLAM keyframe culling): a keyframe
+        is redundant when at least ``redundant_fraction`` of its landmarks
+        are seen by at least ``min_other_obs`` other keyframes. One keyframe
+        per pass (each cull changes the others' redundancy), up to
+        ``max_cull`` passes. The newest ``protect_recent`` keyframes and the
+        oldest (the BA and pose-graph gauge anchor) are never culled.
+        Returns the culled ordinals, in pass order. Pair with ``compact``."""
+        protect_recent = max(1, protect_recent)
+        culled = []
+        m = self.metrics
+        for _ in range(max_cull):
+            st = self._st
+            ordinal, valid = _host(st.store.ordinal), _host(st.store.valid)
+            if int(valid.sum()) <= protect_recent + 2:
+                break
+            min_ord = int(ordinal[valid].min())
+            eligible = valid & (ordinal > min_ord) & (ordinal < self._num_kf - protect_recent)
+            if not eligible.any():
+                break
+            with m.timer("cull_keyframes"):
+                store, lmap, obs, slot = kfs.cull_one_keyframe(
+                    st.store, st.lmap, st.obs, torch.as_tensor(eligible, device=self.device),
+                    min_other_obs, redundant_fraction)
+                slot = int(slot)
+            if slot < 0:
+                break
+            self._st = st._replace(store=store, lmap=lmap, obs=obs)
+            self._culled_slots.add(slot)
+            culled.append(int(ordinal[slot]))
+        if culled:
+            m.count("keyframes_culled", len(culled))
+            m.gauge("num_keyframes", self.num_keyframes)
+        return culled
+
+    def compact(self):
+        """Re-pack live landmarks and observations to the front of their
+        tables and pull the cursors back (backend/keyframes.compact_map):
+        culling invalidates rows, only compaction reclaims them. Returns
+        (num_landmarks, num_observations)."""
+        st = self._st
+        with self.metrics.timer("compact"):
+            lmap, obs, n_lm, n_obs = kfs.compact_map(st.lmap, st.obs)
+            self._num_lm, self._num_obs = int(n_lm), int(n_obs)
+        self._st = st._replace(lmap=lmap, obs=obs)
+        self.metrics.gauge("num_landmarks", self._num_lm)
+        self.metrics.gauge("num_observations", self._num_obs)
+        return self._num_lm, self._num_obs
 
     # -- loop closure / relocalisation -----------------------------------------
 
@@ -978,6 +1203,138 @@ class KeyframeSLAM:
         feats, pts = self._features(frame)
         rec = self._relocalise_feats(feats, pts, min_matches=min_matches)
         return None if rec is None else (rec[0], rec[1])
+
+    def merge_map(self, other: SlamState, min_anchors: int = 3, min_matches: int = 30):
+        """Fuse another session's map into this one (multi-session
+        rendezvous, the ORB-SLAM3 atlas merge).
+
+        Every keyframe of ``other`` is relocalised against this map; a
+        Sim(3) from the other session's frame to this one (monocular maps
+        have independent scales) takes its rotation from the chordal mean
+        of the anchors' rotations, and its scale and translation from their
+        camera centres. The other session's keyframes (poses transformed),
+        landmarks (positions transformed) and observation rows (slots
+        remapped) are then appended up to free capacity, newest first.
+        ``other`` may lie on any device. Returns the number of keyframes
+        merged, or -1 if fewer than ``min_anchors`` keyframes relocalise."""
+        m = self.metrics
+        dev = self.device
+
+        def here(table):
+            return type(table)(*(x.to(dev) for x in table))
+
+        o_store, o_lmap, o_obs = here(other.store), here(other.lmap), here(other.obs)
+        o_valid, o_ord = _host(o_store.valid), _host(o_store.ordinal)
+        slots_b = [int(s) for s in np.argsort(o_ord) if o_valid[s]]
+        if not slots_b:
+            return -1
+
+        # 1. relocalise the other session's keyframes against this map
+        anchors = []  # (slot_b, R_a, t_a)
+        with m.timer("merge_relocalise"):
+            for s in slots_b:
+                feats_like = Features(
+                    codes=o_store.codes[s], valid=o_store.kp_valid[s],
+                    angles=torch.zeros(o_store.codes.shape[1], dtype=torch.uint8, device=dev),
+                    descriptors=o_store.descriptors[s])
+                rec = self._relocalise_feats(feats_like, o_store.pts[s],
+                                             min_matches=min_matches)
+                if rec is not None:
+                    anchors.append((s, rec[0], rec[1]))
+        if len(anchors) < min_anchors:
+            return -1
+
+        # 2. Sim(3) from the other session's frame to this one. The rotation
+        # comes from the anchor rotation pairs, not a centre-cloud Umeyama:
+        # the centres of a straight or planar path leave the rotation free
+        # about the path's axis. Each anchor gives R_a = R_b RU^T, so RU is
+        # the rotation nearest to sum R_a^T R_b.
+        Rb, tb = _host(o_store.R), _host(o_store.t)
+        cb = np.stack([-Rb[s].T @ tb[s] for s, _R, _t in anchors])
+        ca = np.stack([-Ra.T @ ta for _s, Ra, ta in anchors])
+        M = np.sum([Ra.T @ Rb[s] for s, Ra, _t in anchors], axis=0)
+        U, _sv, Vt = np.linalg.svd(M)
+        RU = U @ np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))]) @ Vt
+        e, g = cb - cb.mean(0), ca - ca.mean(0)
+        denom = float((e * e).sum())
+        s_ = float((g * (e @ RU.T)).sum()) / denom if denom > 1e-12 else 1.0
+        p = ca.mean(0) - s_ * RU @ cb.mean(0)           # x_a = s RU x_b + p
+        if not (np.isfinite(s_) and s_ > 1e-6 and np.isfinite(RU).all()
+                and np.isfinite(p).all()):
+            return -1
+
+        # 3. append the keyframes (newest first when the ring is short),
+        # landmarks and observation rows, transformed
+        st = self.state
+        cap = self.capacity
+        n_free = cap - self.num_keyframes
+        if n_free <= 0:
+            return -1
+        keep = slots_b[-n_free:]
+        base_ord = self._num_kf
+        src = torch.as_tensor(keep, dtype=torch.int64, device=dev)
+        dst = torch.as_tensor([(base_ord + i) % cap for i in range(len(keep))],
+                              dtype=torch.int64, device=dev)
+        Rn = np.stack([(Rb[s] @ RU.T).astype(np.float32) for s in keep])
+        tn = np.stack([(-Rn[i] @ (s_ * (RU @ (-Rb[s].T @ tb[s])) + p)).astype(np.float32)
+                       for i, s in enumerate(keep)])
+
+        def put(x, v):
+            return x.index_copy(0, dst, v)
+
+        store = st.store._replace(
+            R=put(st.store.R, torch.as_tensor(Rn, device=dev)),
+            t=put(st.store.t, torch.as_tensor(tn, device=dev)),
+            codes=put(st.store.codes, o_store.codes[src]),
+            kp_valid=put(st.store.kp_valid, o_store.kp_valid[src]),
+            descriptors=put(st.store.descriptors, o_store.descriptors[src]),
+            pts=put(st.store.pts, o_store.pts[src]),
+            frame_id=put(st.store.frame_id, o_store.frame_id[src]),
+            ordinal=put(st.store.ordinal, torch.arange(
+                base_ord, base_ord + len(keep), dtype=torch.int32, device=dev)),
+            valid=put(st.store.valid, torch.ones(len(keep), dtype=torch.bool, device=dev)))
+        slot_map = np.full(o_store.capacity, -1, np.int64)
+        slot_map[keep] = _host(dst)
+
+        lmap = st.lmap
+        lm_rows = np.nonzero(_host(o_lmap.valid))[0][: lmap.capacity - self._num_lm]
+        lm_map = np.full(o_lmap.capacity, -1, np.int64)
+        lm_map[lm_rows] = np.arange(self._num_lm, self._num_lm + len(lm_rows))
+        if len(lm_rows):
+            xyz_a = (s_ * (_host(o_lmap.xyz)[lm_rows] @ RU.T) + p).astype(np.float32)
+            lsrc = torch.as_tensor(lm_rows, device=dev)
+            ldst = torch.as_tensor(lm_map[lm_rows], device=dev)
+            lmap = lmap._replace(
+                xyz=lmap.xyz.index_copy(0, ldst, torch.as_tensor(xyz_a, device=dev)),
+                descriptors=lmap.descriptors.index_copy(0, ldst, o_lmap.descriptors[lsrc]),
+                obs_count=lmap.obs_count.index_copy(0, ldst, o_lmap.obs_count[lsrc]),
+                valid=lmap.valid.index_copy(
+                    0, ldst, torch.ones(len(lm_rows), dtype=torch.bool, device=dev)))
+
+        obs = st.obs
+        okf, olm = _host(o_obs.kf), _host(o_obs.lm)
+        rows = np.nonzero(_host(o_obs.valid) & (slot_map[okf] >= 0)
+                          & (lm_map[olm] >= 0))[0][: obs.capacity - self._num_obs]
+        if len(rows):
+            odst = torch.arange(self._num_obs, self._num_obs + len(rows), device=dev)
+            obs = obs._replace(
+                kf=obs.kf.index_copy(0, odst, torch.as_tensor(
+                    slot_map[okf[rows]].astype(np.int32), device=dev)),
+                lm=obs.lm.index_copy(0, odst, torch.as_tensor(
+                    lm_map[olm[rows]].astype(np.int32), device=dev)),
+                uv=obs.uv.index_copy(0, odst, o_obs.uv[torch.as_tensor(rows, device=dev)]),
+                valid=obs.valid.index_copy(
+                    0, odst, torch.ones(len(rows), dtype=torch.bool, device=dev)))
+
+        self._st = st._replace(store=store, lmap=lmap, obs=obs)
+        self._num_kf = base_ord + len(keep)
+        self._num_lm += len(lm_rows)
+        self._num_obs += len(rows)
+        self._cache_last((self._num_kf - 1) % cap)
+        m.count("maps_merged")
+        m.gauge("num_keyframes", self.num_keyframes)
+        m.gauge("num_landmarks", self._num_lm)
+        return len(keep)
 
     def optimise_pose_graph(self, loop_edges=()):
         """Global pose-graph GN over the stored keyframes: consecutive

@@ -60,10 +60,9 @@ def _depths_along_ray1(R, t, p1, p2):
 
 
 def _pair(a: float, b: float, device):
-    """(2,) float32 [a, b] made on the device by fills, not a host copy."""
-    out = torch.full((2,), a, dtype=torch.float32, device=device)
-    out[1] = b
-    return out
+    """(2,) float32 [a, b] made on the device, not copied from the host
+    (an element assignment from a Python number waits on the card)."""
+    return torch.where(torch.arange(2, device=device) == 0, a, b).to(torch.float32)
 
 
 def normalise_points(feats: Features, fx, fy, cx, cy, level_rows,

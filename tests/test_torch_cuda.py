@@ -422,3 +422,46 @@ def test_slam_on_card_matches_cpu(dev, monkeypatch):
         assert abs(a["num_inliers"] - b["num_inliers"]) <= 2
         assert np.abs(a["pose_R"] - b["pose_R"]).max() <= 1e-3
         assert np.abs(a["pose_t"] - b["pose_t"]).max() <= 1e-3
+
+
+def test_slam_chunk_on_card_matches_cpu(dev, monkeypatch):
+    """process_chunk over the same four eval_seq frames as one chunk, on the
+    card and on the CPU, both drawing from one CPU generator: the same
+    decisions, counters and keyframes, poses within 1e-3; on the card K1,
+    K2 and orb_describe once per frame and K5 twice per tracked frame."""
+    import dataclasses
+
+    from pislam_tpu_torch import BAConfig, MapConfig
+    from pislam_tpu_torch.geometry import ransac
+
+    cfg = dataclasses.replace(
+        PislamConfig(pyramid=PyramidConfig(base_width=384, base_height=256, num_levels=4),
+                     frontend=FrontendConfig(fast_threshold=14, harris_threshold=1 << 9,
+                                             border=16, max_keypoints=512),
+                     matcher=MatcherConfig(max_distance=64, ratio=0.85),
+                     vo=VOConfig(ransac_iters=256, inlier_threshold=2e-3, min_inliers=20)),
+        ba=BAConfig(window=6, max_points=1024, max_obs=4096, gn_iters=4),
+        map=MapConfig(gate_radius=0.06, keyframe_capacity=16))
+    d = np.load(DATA / "eval_seq.npz")
+    intr = [float(d[k]) for k in ("fx", "fy", "cx", "cy")]
+    draw = ransac.sample_indices
+    runs = []
+    for device in (dev, "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        monkeypatch.setattr(ransac, "sample_indices", lambda valid, iters, size, _g=None: draw(
+            valid.cpu(), iters, size, gen).to(valid.device))
+        slam = pislam_tpu_torch.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60,
+                                             keyframe_max_gap=3, device=device)
+        kernels.reset_launch_counts()
+        out = slam.process_chunk(d["frames"][:4])
+        runs.append((out, slam.state.counters.cpu(), slam.keyframe_frames,
+                     kernels.launch_counts()))
+    (card, c_card, kf_card, n_card), (cpu, c_cpu, kf_cpu, _) = runs
+    assert kf_card == kf_cpu == [0, 3] and torch.equal(c_card, c_cpu)
+    assert card["keyframe"].tolist() == cpu["keyframe"].tolist()
+    assert np.abs(card["num_inliers"] - cpu["num_inliers"]).max() <= 2
+    for k in ("pose_R", "pose_t"):
+        assert np.abs(card[k] - cpu[k]).max() <= 1e-3
+    for k in ("fused_frontend_codes", "topk_keys", "orb_describe"):
+        assert n_card[k] == 4
+    assert n_card["match_reduce"] == 6

@@ -48,6 +48,16 @@ def test_no_jax_import_in_source(path):
             assert name.split(".")[0] not in ("jax", "jaxlib", "pislam_tpu"), (path, name)
 
 
+def test_source_check_covers_the_chunk_path():
+    """The chunk scan and the homography bootstrap are among the sources
+    test_no_jax_import_in_source reads."""
+    sources = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    assert {"pislam_tpu_torch/models/slam_scan.py",
+            "pislam_tpu_torch/geometry/homography.py"} <= sources
+    assert pislam_tpu_torch.make_slam_track_scan.__module__ == "pislam_tpu_torch.models.slam_scan"
+    assert pislam_tpu_torch.homography.__name__ == "pislam_tpu_torch.geometry.homography"
+
+
 def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 

@@ -212,13 +212,17 @@ def test_slam_state_from_numpy_round_trip(jax_run):
 
 
 def test_unported_options_raise(seq):
+    """Checkpoints are the one part of KeyframeSLAM not ported yet; the E/H
+    bootstrap and the chunk path are, and the chunk path refuses what the
+    JAX package refuses (tests/test_torch_slam_scan.py holds both)."""
     _, intr = seq
     cfg = port_config(slam_config())
-    with pytest.raises(NotImplementedError, match="homography"):
-        pt.KeyframeSLAM(dataclasses.replace(cfg, vo=dataclasses.replace(
-            cfg.vo, bootstrap_model_select=True)), *intr, device="cpu")
-    with pytest.raises(NotImplementedError, match="slam_scan"):
-        pt.KeyframeSLAM(cfg, *intr, device="cpu").process_chunk(np.zeros((2, 256, 384)))
+    slam = pt.KeyframeSLAM(dataclasses.replace(cfg, vo=dataclasses.replace(
+        cfg.vo, bootstrap_model_select=True)), *intr, device="cpu")
+    assert not hasattr(slam, "save_checkpoint") and not hasattr(slam, "restore_checkpoint")
+    with pytest.raises(ValueError, match="image frontend"):
+        pt.KeyframeSLAM(cfg, *intr, features_fn=lambda f: None,
+                        device="cpu").process_chunk(np.zeros((2, 256, 384), np.uint8))
 
 
 def test_keyframe_slam_defaults_to_the_card(seq):
