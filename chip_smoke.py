@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ORB extraction, visual odometry and keyframe SLAM
-(per frame and in device-resident chunks) on one CUDA card and check them.
+"""Drive the PyTorch port's ORB extraction, visual odometry, keyframe SLAM
+(per frame and in device-resident chunks), the SLAM service and the demo on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -77,6 +78,20 @@ prints no result line):
    merge of a second session, each operation replayed on the CPU from the
    card's state; and a reading for ROADMAP F1 (eval_seq2 frames 3-4, card
    against CPU stage by stage from one state).
+7b. service: pislam_tpu_torch.service.main at its own config over
+   eval_seq4 in chunks of 8, with checkpoints every 64 frames, --traj-out,
+   --map-out, --metrics and the end-of-run closure, then over eval_seq with
+   --loop-every 2 (ATE below 0.5, at least one mid-run closure), each with
+   exact launch counts by the chunk path's rule; a kill at frame 112 and
+   the rerun that resumes there (its frames make the straight run's
+   keyframe decisions, poses within 1e-3; its first chunk equals the
+   restored state's, run here); the checkpoint's round trip on the card and
+   from the card to the CPU (tables bit-exact; the CUDA generator refused by
+   the strict rule, reseeded by the relaxed one); localization-only on the
+   map stored before the closure (its counts, no closure); and the demo's
+   annotate on the 8 VGA frames in both input forms, bit-exact against the
+   plain path on the card, K1, K2 and orb_describe once per frame. ms/frame,
+   close_loop ms, the checkpoint's MB and save and restore ms, GPU Time.
 8. times from CUDA events (median of 30 after warm-up) and host clocks
    ending in a synchronize, device time and device kernels per call from
    torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
@@ -1598,23 +1613,37 @@ def run_chunks(slam, frames, chunk=CHUNK):
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
-def launches_inside(obj, name):
-    """Wraps the method ``name`` of ``obj``; returns a dict that sums the
-    kernel launches made inside its calls."""
-    from pislam_tpu_torch.ops import kernels
-    fn, total = getattr(obj, name), {"calls": 0}
+class Wrap:
+    """Stands in for the function ``name`` of ``owner`` (an object; a class,
+    for every instance; or a module): counts its calls and the kernel launches made
+    inside them, sums their host time (to a synchronize with ``sync``) and
+    keeps their results with ``keep``."""
 
-    def counting(*args, **kw):
-        before = kernels.launch_counts()
-        try:
-            return fn(*args, **kw)
-        finally:
-            total["calls"] += 1
-            for k, n in kernels.launch_counts().items():
-                total[k] = total.get(k, 0) + n - before[k]
+    def __init__(self, owner, name, keep=False, sync=False):
+        from pislam_tpu_torch.ops import kernels
+        self.owner, self.name, self.fn = owner, name, getattr(owner, name)
+        self.calls, self.seconds, self.launches, self.results = 0, 0.0, {}, []
+        fn = self.fn
 
-    setattr(obj, name, counting)
-    return total
+        def wrapped(*args, **kw):
+            before, t0 = kernels.launch_counts(), time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                for k, n in kernels.launch_counts().items():
+                    self.launches[k] = self.launches.get(k, 0) + n - before[k]
+            if keep:
+                self.results.append(out)
+            return out
+
+        setattr(owner, name, wrapped)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
 
 
 def chunk_path(dev, seqs, card, slam_res):
@@ -1626,7 +1655,8 @@ def chunk_path(dev, seqs, card, slam_res):
     and selects on the device) plus what the boundary relocalisations
     launch; every other kernel never. ATE held to the per-frame path's of
     phase 6 (tests/test_slam_scan.py's rule); ms/frame on the host clock to
-    a synchronize, beside phase 6's. Returns the launches."""
+    a synchronize, beside phase 6's. Returns the launches, and each
+    sequence's ms/frame and ATE."""
     from pislam_tpu_torch import evaluation
     from pislam_tpu_torch.ops import kernels
     from pislam_tpu_torch.utils.metrics import Metrics
@@ -1635,11 +1665,11 @@ def chunk_path(dev, seqs, card, slam_res):
     on_card = {name: torch.as_tensor(frames).to(dev) for name, (frames, _, _) in seqs.items()}
     run_chunks(make_slam(cfg, seqs["eval_seq"][1], dev), on_card["eval_seq"][:2 * CHUNK])
     torch.cuda.synchronize()                                     # warm-up
-    launches, failures = {k.__name__: 0 for k in kernels.COUNTED}, []
+    launches, failures, results = {k.__name__: 0 for k in kernels.COUNTED}, [], {}
     for name, (frames, intr, gt) in seqs.items():
         metrics = Metrics(sink=lambda line: None)
         slam = make_slam(cfg, intr, dev, metrics)
-        reloc = launches_inside(slam, "_relocalise_feats")
+        reloc = Wrap(slam, "_relocalise_feats").launches
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = run_chunks(slam, on_card[name])
@@ -1668,13 +1698,14 @@ def chunk_path(dev, seqs, card, slam_res):
               f"{int(out['keyframe'].sum())} in-scan keyframe decisions, lost at a chunk's "
               f"end {slam.frames_lost}, relocalisations {slam.relocalisations}")
         r = slam_res[name]
+        results[name] = {"ms": wall / len(frames) * 1e3, "ate": ate}
         print(f"time chunk {name}: {wall / len(frames) * 1e3:.4f} ms/frame in chunks of "
               f"{CHUNK} (host clock to synchronize; the per-frame path of phase 6 "
               f"{r['t_track'] / r['frames'] * 1e3:.4f}) [{card}]")
     if failures:
         raise AssertionError(f"chunk path: {len(failures)} failures: " + "; ".join(failures))
     print(f"phase chunk path launches: {json.dumps(launches)}")
-    return launches
+    return launches, results
 
 
 def _huber_off(cfg, **vo):
@@ -2138,6 +2169,308 @@ def f1_probe(dev, seqs, card):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 7b: the service
+# ---------------------------------------------------------------------------
+
+SERVICE_KILL_AT = 112          # eval_seq4: the first run stops here, the rerun resumes
+SERVICE_ATE_LIMIT = 0.5        # tests/test_service.py's bound for eval_seq, --loop-every 2
+
+
+def run_service(argv):
+    """pislam_tpu_torch.service.main(argv) with its KeyframeSLAM's chunks,
+    chunk-boundary relocalisations, closures and checkpoint saves wrapped.
+    Returns the report, the stderr lines, the host seconds to a synchronize,
+    the launches of the whole run, and the wraps."""
+    import contextlib
+    import io
+
+    from pislam_tpu_torch import KeyframeSLAM, service
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.utils import checkpoint
+
+    wraps = {"chunk": Wrap(KeyframeSLAM, "process_chunk", keep=True),
+             "reloc": Wrap(KeyframeSLAM, "_relocalise_feats"),
+             "close": Wrap(KeyframeSLAM, "close_loop", sync=True),
+             "save": Wrap(checkpoint, "save", sync=True)}
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            service.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        for w in wraps.values():
+            w.restore()
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    return report, err.getvalue().splitlines(), wall, launches, wraps
+
+
+def service_launches(label, report, launches, wraps):
+    """The chunk path's rule, exact: K1, K2 and orb_describe once per frame
+    this run processed, plus once per chunk that ended lost (its last frame
+    is extracted again to relocalise); K5 twice per tracked frame, plus what
+    the relocalisations and the closures launched; every other kernel 0."""
+    frames = report["frames"] - report["resumed_at"]
+    tracked = frames - (1 if report["resumed_at"] == 0 else 0)
+    lost = wraps["reloc"].calls
+    want = {k: frames + lost for k in FUSED_PATH_KERNELS}
+    want["match_reduce"] = (2 * tracked + wraps["reloc"].launches.get("match_reduce", 0)
+                            + wraps["close"].launches.get("match_reduce", 0))
+    bad = [f"{k} launched {n} times, expected {want.get(k, 0)}"
+           for k, n in launches.items() if n != want.get(k, 0)]
+    if bad:
+        raise AssertionError(f"service {label}: " + "; ".join(bad))
+    return {k: n for k, n in launches.items() if n}
+
+
+def chunk_outputs(wrap, first=0):
+    outs = wrap.results[first:]
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def same_decisions(a, b):
+    """The largest pose difference of two runs' frames, or None where their
+    keyframe decisions differ."""
+    if not np.array_equal(a["keyframe"], b["keyframe"]):
+        return None
+    return max(float(np.abs(a[k] - b[k]).max()) for k in ("pose_R", "pose_t"))
+
+
+def _service_payload(path, cfg, device, strict=True):
+    from pislam_tpu_torch.models.slam import init_state
+    from pislam_tpu_torch.utils import checkpoint
+    like = {"state": init_state(cfg, 7, device), "steps_done": 0}
+    return checkpoint.restore(str(path), like=like, strict_generator=strict)
+
+
+def _payload_diffs(a, b):
+    """Names of the tables, counters and generator states that differ."""
+    from pislam_tpu_torch.utils import checkpoint
+    la, lb = checkpoint.leaves(a), checkpoint.leaves(b)
+    bad = sorted(set(la) ^ set(lb))
+    for name in set(la) & set(lb):
+        x, y = la[name], lb[name]
+        if isinstance(x, dict):
+            x, y = x["state"], y["state"]
+        if isinstance(x, torch.Tensor) and not (x.dtype == y.dtype and torch.equal(x, y)):
+            bad.append(name)
+        elif not isinstance(x, torch.Tensor) and x != y:
+            bad.append(name)
+    return bad
+
+
+def service_phase(dev, seqs, card, chunk_res, vga):
+    """The service at full width (its own build_config: FAST 20, Harris
+    1<<10, 256 RANSAC iterations, 64 keyframe slots, 8192 landmarks) over
+    eval_seq4 in chunks of 8 with checkpoints and the end-of-run closure,
+    eval_seq with mid-run closures, a kill at frame 112 and the rerun that
+    resumes, the checkpoint's round trips (card, card to CPU),
+    localization-only on the stored map, and the demo against the plain
+    path; launches exact by the chunk path's rule."""
+    import shutil
+    import tempfile
+
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch import demo, service
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.ops.pyramid import build_pyramid
+    from pislam_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    seq4, seq1 = str(ROOT / "data" / "eval_seq4.npz"), str(ROOT / "data" / "eval_seq.npz")
+    frames4, intr4, _ = seqs["eval_seq4"]
+    cfg = service.build_config(384, 256)
+    c4 = chunk_res["eval_seq4"]
+    with tempfile.TemporaryDirectory(prefix="pislam_service_") as tmp:
+        tmp = Path(tmp)
+        d1, d2 = tmp / "d1", tmp / "d2"
+
+        # 1. the service at full width, with the end-of-run closure
+        rep, err, wall, got, w = run_service(
+            ["--seq", seq4, "--chunk", str(CHUNK), "--checkpoint-dir", str(d1),
+             "--checkpoint-every", "64", "--traj-out", str(tmp / "t1.txt"),
+             "--map-out", str(tmp / "p1.ply"), "--metrics"])
+        used = service_launches("eval_seq4", rep, got, w)
+        if rep.get("ate_rmse") is None or rep["frames"] != len(frames4):
+            raise AssertionError(f"service eval_seq4: {rep}")
+        mlines = [json.loads(line) for line in err if line.startswith("{")]
+        if len(mlines) != -(-len(frames4) // CHUNK) or not all(
+                "time_ms.scan_chunk" in m for m in mlines):
+            raise AssertionError(f"service eval_seq4: {len(mlines)} metric lines")
+        straight = chunk_outputs(w["chunk"])
+        size_mb = (d1 / "state").stat().st_size / 1e6
+        track_s = wall - w["close"].seconds
+        print(f"phase service eval_seq4: {rep['frames']} frames in chunks of {CHUNK}, "
+              f"{rep['keyframes']} keyframes, {rep['landmarks']} landmarks, lost "
+              f"{rep['frames_lost']}, relocalisations {rep['relocalisations']}, closure to "
+              f"keyframe {rep['loop_closed_to_kf']}; ATE {rep['ate_rmse']} (phase 7's "
+              f"chunk-{CHUNK} path at slam_config {c4['ate']:.4f}, held to nothing: the "
+              f"configs differ); launches {json.dumps(used)}")
+        print(f"time service eval_seq4: {track_s / rep['frames'] * 1e3:.4f} ms/frame "
+              f"(host clock to synchronize, {w['save'].calls} checkpoint saves included; "
+              f"phase 7's chunk-{CHUNK} path {c4['ms']:.4f}), close_loop "
+              f"{w['close'].seconds * 1e3:.1f} ms, checkpoint {size_mb:.3f} MB saved in "
+              f"{w['save'].seconds / w['save'].calls * 1e3:.1f} ms [{card}]")
+
+        # eval_seq whole, with mid-run closures (tests/test_service.py's flags)
+        rep1, _, wall1, got1, w1 = run_service(
+            ["--seq", seq1, "--chunk", str(CHUNK), "--loop-every", "2", "--no-loop-close"])
+        used1 = service_launches("eval_seq", rep1, got1, w1)
+        if not (rep1.get("ate_rmse") is not None and rep1["ate_rmse"] < SERVICE_ATE_LIMIT
+                and rep1["loops_closed_midrun"] >= 1):
+            raise AssertionError(f"service eval_seq --loop-every 2: {rep1}")
+        print(f"phase service eval_seq --loop-every 2: {rep1['frames']} frames, ATE "
+              f"{rep1['ate_rmse']} (limit {SERVICE_ATE_LIMIT}), {rep1['loops_closed_midrun']} "
+              f"mid-run closures of {w1['close'].calls}, {rep1['keyframes']} keyframes; "
+              f"launches {json.dumps(used1)}")
+        print(f"time service eval_seq --loop-every 2: {wall1 * 1e3 / rep1['frames']:.4f} "
+              f"ms/frame with the closures, {w1['close'].seconds * 1e3:.1f} ms in "
+              f"{w1['close'].calls} closures [{card}]")
+
+        # 2. kill and resume
+        argv2 = ["--seq", seq4, "--chunk", str(CHUNK), "--checkpoint-dir", str(d2),
+                 "--checkpoint-every", "64"]
+        repk, _, _, gotk, wk = run_service(argv2 + ["--max-frames", str(SERVICE_KILL_AT),
+                                                    "--no-loop-close"])
+        service_launches("eval_seq4 to the kill", repk, gotk, wk)
+        shutil.copy(d2 / "state", tmp / "killed_state")
+        repr_, _, wallr, gotr, wr = run_service(argv2)
+        usedr = service_launches("eval_seq4 resumed", repr_, gotr, wr)
+        if repr_["resumed_at"] != SERVICE_KILL_AT:
+            raise AssertionError(f"service resume: resumed_at {repr_['resumed_at']}")
+        resumed = chunk_outputs(wr["chunk"])
+        tail = {k: v[SERVICE_KILL_AT:] for k, v in straight.items()}
+        d_resume = same_decisions(resumed, tail)
+        # the rerun's first chunk against the same state, restored, run here
+        payload = _service_payload(tmp / "killed_state", cfg, dev)
+        ref = pt.KeyframeSLAM(cfg, *intr4, keyframe_min_inliers=60, keyframe_max_gap=3,
+                              device=dev)
+        ref.set_state(payload["state"])
+        first_ref = ref.process_chunk(frames4[SERVICE_KILL_AT:SERVICE_KILL_AT + CHUNK])
+        first_got = {k: v[:CHUNK] for k, v in resumed.items()}
+        d_first = same_decisions(first_got, first_ref)
+        if d_first is None or d_first > SLAM_POSE_TOL:
+            raise AssertionError(f"service resume: the first chunk after the restore "
+                                 f"differs from the same state run here ({d_first})")
+        if d_resume is None or d_resume > SLAM_POSE_TOL:
+            head = {k: v[:SERVICE_KILL_AT] for k, v in straight.items()}
+            d_repeat = same_decisions(chunk_outputs(wk["chunk"]), head)
+            if d_repeat is not None and d_repeat <= SLAM_POSE_TOL:
+                raise AssertionError(
+                    f"service resume: frames {SERVICE_KILL_AT}-{len(frames4) - 1} differ "
+                    f"from the straight run ({d_resume}) though two straight runs repeat "
+                    f"({d_repeat})")
+            print(f"finding service: the card's SLAM does not repeat itself: two straight "
+                  f"runs of eval_seq4 frames 0-{SERVICE_KILL_AT - 1} in this call differ "
+                  f"({'keyframe decisions' if d_repeat is None else f'poses by {d_repeat:.3g}'}"
+                  f"), so the resume is held to its first chunk after the restore")
+        print(f"phase service resume: killed at {repk['frames']} frames, rerun resumed at "
+              f"{repr_['resumed_at']}; frames {SERVICE_KILL_AT}-{len(frames4) - 1} against "
+              f"the straight run: "
+              f"{'keyframe decisions differ' if d_resume is None else f'same keyframe decisions, poses within {d_resume:.3g}'}"
+              f"; the first chunk against the restored state run here: poses within "
+              f"{d_first:.3g} (tolerance {SLAM_POSE_TOL}); launches {json.dumps(usedr)}")
+        print(f"time service resume: {(wallr - wr['close'].seconds) / SERVICE_KILL_AT * 1e3:.4f}"
+              f" ms/frame over the resumed frames, close_loop "
+              f"{wr['close'].seconds * 1e3:.1f} ms [{card}]")
+
+        # the checkpoint's round trip on the card: restore, save, restore
+        t0 = time.perf_counter()
+        on_card = _service_payload(d2 / "state", cfg, dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        checkpoint.save(str(tmp / "again"), on_card)
+        again = _service_payload(tmp / "again", cfg, dev)
+        bad = _payload_diffs(on_card, again)
+        if bad or on_card["steps_done"] != len(frames4) // CHUNK:
+            raise AssertionError(f"service checkpoint round trip on the card: {bad}, "
+                                 f"steps_done {on_card['steps_done']}")
+
+        # 3. card -> CPU: the tables exactly; the generator, of another
+        # device type, raises under the strict rule and is reseeded without it
+        try:
+            _service_payload(d2 / "state", cfg, "cpu")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("service card -> CPU: the cuda generator restored onto the CPU")
+        on_cpu = _service_payload(d2 / "state", cfg, "cpu", strict=False)
+        bad = [n for n in _payload_diffs(on_cpu, on_card) if n != "state.generator"]
+        fresh = torch.Generator().manual_seed(7).get_state()
+        if bad or not torch.equal(on_cpu["state"].generator.get_state(), fresh):
+            raise AssertionError(f"service card -> CPU: {bad}")
+        cpu_slam = pt.KeyframeSLAM(cfg, *intr4, device="cpu")
+        cpu_slam.set_state(on_cpu["state"])
+        ref.set_state(on_card["state"])
+        if (cpu_slam.num_keyframes, cpu_slam.num_landmarks, cpu_slam._culled_slots) != \
+                (ref.num_keyframes, ref.num_landmarks, ref._culled_slots):
+            raise AssertionError("service card -> CPU: counts differ")
+        print(f"phase service checkpoint: round trip on the card bit-exact (tables, counters, "
+              f"generator), restore {restore_ms:.1f} ms; card -> CPU tables bit-exact, the "
+              f"strict restore refused ({refused.split(':')[0]}: cuda generator onto cpu), "
+              f"the relaxed one a generator seeded 7 [{card}]")
+
+        # 4. localization-only on the map stored before step 1's closure
+        stored = pt.KeyframeSLAM(cfg, *intr4, device=dev)
+        stored.set_state(_service_payload(d1 / "state", cfg, dev)["state"])
+        repl, _, walll, gotl, _ = run_service(
+            ["--seq", seq4, "--localization-only", "--map-in", str(d1)])
+        want = {k: len(frames4) for k in ("fused_frontend_codes", "topk_keys", "orb_describe")}
+        bad = [k for k, n in gotl.items() if k != "match_reduce" and n != want.get(k, 0)]
+        if (bad or repl["keyframes"] != stored.num_keyframes
+                or repl["landmarks"] != stored.num_landmarks
+                or repl["loop_closed_to_kf"] != -1 or repl["resumed_at"] != 0):
+            raise AssertionError(f"service localization-only: {repl}, launches {gotl} "
+                                 f"({bad}), stored map {stored.num_keyframes} keyframes "
+                                 f"{stored.num_landmarks} landmarks")
+        print(f"phase service localization-only eval_seq4 on the stored map: "
+              f"{repl['keyframes']} keyframes and {repl['landmarks']} landmarks as stored, "
+              f"lost {repl['frames_lost']}, relocalisations {repl['relocalisations']}, ATE "
+              f"{repl.get('ate_rmse')}; launches {json.dumps({k: n for k, n in gotl.items() if n})}")
+        print(f"time service localization-only: {walll / len(frames4) * 1e3:.4f} ms/frame "
+              f"(per-frame path) [{card}]")
+
+    # 5. the demo on the card, both input forms, against the plain path
+    dcfg = demo.demo_config()
+    pc = dcfg.pyramid
+    extract = pt.make_extract_fn(dcfg, dev)
+    plain = pt.OrbExtractor(dcfg, ops=kernels.PLAIN).to(dev)
+    stacks = [build_pyramid(torch.from_numpy(f).to(dev), pc)[:pc.total_height, :pc.base_width]
+              .cpu().numpy() for f in vga]
+    demo.annotate(vga[0], extract, True)                              # warm-up
+    times, counts, painted = {}, [], {}
+    for form, imgs in (("frame", vga), ("stacked", stacks)):
+        build = form == "frame"
+        kernels.reset_launch_counts()
+        got = [demo.annotate(img, extract, build) for img in imgs]
+        launched = kernels.launch_counts()
+        want = {k: len(imgs) for k in ("fused_frontend_codes", "topk_keys", "orb_describe")}
+        if any(n != want.get(k, 0) for k, n in launched.items()):
+            raise AssertionError(f"demo {form}: launches {launched}, expected {want}")
+        for i, (img, (out, n, _)) in enumerate(zip(imgs, got)):
+            p_out, p_n, _ = demo.annotate(img, plain, build)
+            if n != p_n or not np.array_equal(out, p_out):
+                raise AssertionError(f"demo {form} frame {i}: {n} features against the plain "
+                                     f"path's {p_n}, images equal {np.array_equal(out, p_out)}")
+        times[form] = statistics.median(ms for _, _, ms in got)
+        counts.append([n for _, n, _ in got])
+        painted[form] = [out for out, _, _ in got]
+    if not all(np.array_equal(a, b) for a, b in zip(painted["frame"], painted["stacked"])):
+        raise AssertionError("demo: the stacked form paints another image than the frame form")
+    print(f"phase service demo: {len(vga)} VGA frames, both forms bit-exact against the plain "
+          f"path on the card and against each other, features {counts[0]}; K1, K2 and "
+          f"orb_describe once per frame")
+    print(f"time service demo: GPU Time {times['frame']:.3f} ms (frame form), "
+          f"{times['stacked']:.3f} ms (stacked form), median of {len(vga)}, one call between "
+          f"two synchronizes [{card}]")
+    print(f"phase service: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2197,11 +2530,14 @@ def main():
 
     # phase 7: the chunk path (the main path), chunk 1 against process, the
     # E/H bootstrap, the housekeeping and the merge, card against CPU
-    launches = chunk_path(dev, seqs, card, slam_res)
+    launches, chunk_res = chunk_path(dev, seqs, card, slam_res)
     chunk1_vs_process(dev, seqs, card)
     homography_vs_cpu(dev, seqs, card)
     maintenance_and_merge(dev, seqs, card)
     f1_probe(dev, seqs, card)
+
+    # phase 7b: the service (and the demo) on the card
+    service_phase(dev, seqs, card, chunk_res, vga)
 
     # phase 8: times
     for label, cfg in cfgs.items():

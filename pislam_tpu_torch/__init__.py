@@ -7,11 +7,16 @@ orientation and rotated BRIEF, Hamming matching, RANSAC essential and
 frame-to-frame pose chaining, and keyframe SLAM (map tracking, keyframe
 insertion with windowed bundle adjustment, the chunked device-resident
 tracking scan, the E/H homography bootstrap, map housekeeping, pose graph,
-loop closure and multi-session map merging). The
-TPU kernels are CUDA kernels written for sm_90a (``ops/kernels.py``,
-``csrc/``); every kernel has a plain PyTorch version, which runs on the CPU
-and is what the kernels are held to. Entry points run on the card unless
-given ``device="cpu"``. This package never imports jax.
+loop closure, multi-session map merging and checkpoints), the SLAM service
+(``service.py``: frame sources, checkpoint/resume, TUM and PLY export, on
+``io/`` and ``parallel/elastic.CheckpointedRunner``) and the demo
+(``demo.py``). Only the distributed layer (the JAX package's ``parallel/``
+mesh and multi-process code) is not ported. The TPU kernels are CUDA kernels
+written for sm_90a (``ops/kernels.py``, ``csrc/``); every kernel has a plain
+PyTorch version, which runs on the CPU and is what the kernels are held to.
+Entry points run on the card unless given ``device="cpu"`` (``--cpu`` for
+the service and the demo, which this package does not import). This package
+never imports jax.
 """
 
 from .config import (  # noqa: F401

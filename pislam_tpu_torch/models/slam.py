@@ -32,7 +32,9 @@ used while only the bootstrap keyframe exists (``geometry/homography.py``).
 The map's housekeeping (``cull_keyframes``, ``compact``,
 ``evict_stale_landmarks``, ``retriangulate_landmarks``) and multi-session
 ``merge_map`` are host orchestration over the backend's functions, as in the
-JAX package. Not in this port yet: checkpoints.
+JAX package. ``save_checkpoint`` / ``restore_checkpoint`` write and read the
+whole ``SlamState``, the generator's state included, as a torch state dict
+(``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..backend import keyframes as kfs
 from ..config import PislamConfig
 from ..frontend import Features
 from ..geometry import homography, ransac, se3
+from ..utils import checkpoint as ckpt
 from ..utils.metrics import NullMetrics
 from .visual_odometry import VisualOdometry
 
@@ -232,6 +235,7 @@ class KeyframeSLAM:
         if self.capacity < cfg.ba.window:
             raise ValueError("the keyframe ring must hold at least one BA window")
 
+        self.seed = seed
         self._st = init_state(cfg, seed, self.device)
         # host mirrors of the counters (authoritative during a run; synced
         # from the device state by set_state)
@@ -289,6 +293,19 @@ class KeyframeSLAM:
         else:
             self._last = None
             self._prev_pose = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+
+    def save_checkpoint(self, path: str):
+        """Write the state, counters and generator state, to the file ``path``."""
+        ckpt.save(path, self.state)
+
+    def restore_checkpoint(self, path: str, strict_generator: bool = True):
+        """Adopt a ``save_checkpoint`` file. Its tables load onto this
+        SLAM's device from any device; a checkpoint of another config raises.
+        Its generator is restored exactly onto the same device type; from
+        another type this raises, or with ``strict_generator=False`` keeps a
+        generator seeded with ``seed`` (``utils/checkpoint.py``)."""
+        like = init_state(self.cfg, self.seed, self.device)
+        self.set_state(ckpt.restore(path, like=like, strict_generator=strict_generator))
 
     def _cache_last(self, slot: int):
         st = self._st.store

@@ -58,6 +58,15 @@ def test_source_check_covers_the_chunk_path():
     assert pislam_tpu_torch.homography.__name__ == "pislam_tpu_torch.geometry.homography"
 
 
+def test_source_check_covers_the_service():
+    """The service, the demo, their I/O, the checkpoints and the runner are
+    among the sources test_no_jax_import_in_source reads."""
+    sources = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    assert {f"pislam_tpu_torch/{name}.py" for name in (
+        "service", "demo", "io/native", "io/datasets", "utils/checkpoint",
+        "parallel/elastic")} <= sources
+
+
 def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 

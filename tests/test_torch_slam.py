@@ -211,15 +211,19 @@ def test_slam_state_from_numpy_round_trip(jax_run):
     assert set(st._fields) == set(jstate._fields) - {"key"} | {"generator"}
 
 
-def test_unported_options_raise(seq):
-    """Checkpoints are the one part of KeyframeSLAM not ported yet; the E/H
-    bootstrap and the chunk path are, and the chunk path refuses what the
-    JAX package refuses (tests/test_torch_slam_scan.py holds both)."""
+def test_unported_options_raise(seq, tmp_path):
+    """Every part of KeyframeSLAM but ``mesh`` is ported: checkpoints (held
+    in tests/test_torch_checkpoint.py), the E/H bootstrap and the chunk
+    path, which refuses what the JAX package refuses
+    (tests/test_torch_slam_scan.py holds both)."""
     _, intr = seq
     cfg = port_config(slam_config())
     slam = pt.KeyframeSLAM(dataclasses.replace(cfg, vo=dataclasses.replace(
         cfg.vo, bootstrap_model_select=True)), *intr, device="cpu")
-    assert not hasattr(slam, "save_checkpoint") and not hasattr(slam, "restore_checkpoint")
+    assert "mesh" not in inspect.signature(pt.KeyframeSLAM).parameters
+    slam.save_checkpoint(str(tmp_path / "map.pt"))
+    slam.restore_checkpoint(str(tmp_path / "map.pt"))
+    assert slam.num_keyframes == 0 and slam.keyframes_inserted == 0
     with pytest.raises(ValueError, match="image frontend"):
         pt.KeyframeSLAM(cfg, *intr, features_fn=lambda f: None,
                         device="cpu").process_chunk(np.zeros((2, 256, 384), np.uint8))
