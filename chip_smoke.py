@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ORB extraction, visual odometry, keyframe SLAM
-(per frame and in device-resident chunks), the SLAM service and the demo on
-one CUDA card and check them.
+(per frame and in device-resident chunks), the SLAM service, the demo and
+the distributed layer on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -92,6 +92,23 @@ prints no result line):
    annotate on the 8 VGA frames in both input forms, bit-exact against the
    plain path on the card, K1, K2 and orb_describe once per frame. ms/frame,
    close_loop ms, the checkpoint's MB and save and restore ms, GPU Time.
+7c. distributed layer (parallel/) on the one card, each check an assert:
+   world size 1 on NCCL through the entry points (make_mesh -> 1x1; the
+   sharded match at 512x8192 and the sharded map tracker on the map phase 6
+   leaves after eval_seq4 against the unsharded ones; KeyframeSLAM(mesh=...)
+   over eval_seq with close_loop against phase 6's run: decisions,
+   counters, keyframes, loop, branch and K5 launches equal, trajectory
+   within 1e-4; make_distributed_ba dense and CG on a window of that run
+   within 1e-4 of bundle_adjust; make_batch_extract on the VGA frames, VO
+   and SLAM streams over the first 48 frames of the four sequences against
+   make_vo_scan and the chunk scan; dryrun_multichip(1)); n = 2, 4 and 8
+   shards in one process (match_shard on each slice, merge_match_shards)
+   bit-exact against one K5 at 512x8192 and for gated map tracking, with
+   exactly n K5 launches per call, store counts equal, BA's Schur sums from
+   the shards within 1e-4, and the sharded match timed at each n; and a
+   probe, two processes on cuda:0, of whether gloo carries CUDA tensors
+   (if it does, the 2-rank sharded match and tracker against the unsharded
+   path). Its K5 launches on a line of their own.
 8. times from CUDA events (median of 30 after warm-up) and host clocks
    ending in a synchronize, device time and device kernels per call from
    torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
@@ -1353,6 +1370,12 @@ def pose_graph_audit(graphs):
     return bad, worst
 
 
+def decision(out) -> tuple:
+    """A SLAM frame's decisions: keyframe, RANSAC inliers, map inliers, lost."""
+    return (bool(out["keyframe"]), int(out["num_inliers"]), int(out["map_inliers"]),
+            bool(out["lost"]))
+
+
 def slam_path(dev, seqs, card):
     """KeyframeSLAM over every sequence at full length, then close_loop: the
     port's main path. Every launch count is exact: K1, K2 and orb_describe
@@ -1467,6 +1490,9 @@ def slam_path(dev, seqs, card):
                                   "kf_ate_pre": evaluation.ate_rmse(pre, gt[kf]),
                                   "kf_ate_post": evaluation.ate_rmse(post, gt[kf])},
                          "kf": kf, "inserted": slam.keyframes_inserted, "closure": closure,
+                         "decisions": [decision(o) for o in outs], "traj": traj, "post": post,
+                         "state": slam.state, "counters": slam.state.counters.cpu(),
+                         "k5": track_launches["match_reduce"] + close_launches["match_reduce"],
                          "loop_survives": closure["loop"] in surviving,
                          "lost": slam.frames_lost, "reloc": slam.relocalisations,
                          "t_track": t_track, "t_close": t_close, "frames": len(frames),
@@ -2471,6 +2497,453 @@ def service_phase(dev, seqs, card, chunk_res, vga):
     print(f"phase service: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7c: the distributed layer
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = (2, 4, 8)
+DIST_TRACK_TOL = 1e-5      # tests/test_parallel.py's R, t tolerance for the tracker
+DIST_TRAJ_TOL = 1e-4
+DIST_BA_TOL = 1e-4
+DIST_STREAM_FRAMES = 48
+GLOO_RANKS = 2
+GLOO_TIMEOUT = 180
+DIST_BACKEND = "nccl"      # the card's collectives; world size 1 on one card
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def require_same(name: str, got, want):
+    """Equal shapes, dtypes and values (floats bit for bit, but for -0.0)."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: differs ({tuple(got.shape)} {got.dtype} against "
+                             f"{tuple(want.shape)} {want.dtype})")
+
+
+def dist_track_inputs(dev, seqs, slam_res):
+    """Map tracking at its full size: the landmark map phase 6 leaves after
+    eval_seq4 (slam_config's 8192 slots), the features and points of its
+    last keyframe's frame, and that keyframe's pose as the prior."""
+    import pislam_tpu_torch as pt
+    r = slam_res["eval_seq4"]
+    st = r["state"]
+    slot = (int(r["counters"][0]) - 1) % slam_config().map.keyframe_capacity
+    odo = pt.VisualOdometry(slam_config(), *seqs["eval_seq4"][1], device=dev)
+    feats, pts = odo.frontend(torch.as_tensor(seqs["eval_seq4"][0][r["kf"][-1]]))
+    return st.lmap, feats, pts, st.store.R[slot], st.store.t[slot]
+
+
+def dist_world1(dev, seqs, card, slam_res, k5_cases, vga, track):
+    """World size 1 on NCCL through the entry points a user calls: the
+    sharded match at 512x8192 and the sharded map tracker on eval_seq4's
+    map against the unsharded ones, KeyframeSLAM(mesh=...) over eval_seq with
+    close_loop against phase 6's run (same decisions, counters, keyframes,
+    loop, branch and K5 launches; trajectory within 1e-4), make_distributed_ba
+    dense and CG on a window of that run against bundle_adjust, data-parallel
+    extraction of the VGA frames, VO and SLAM streams over the first 48
+    frames of the four sequences against make_vo_scan and the chunk scan,
+    and dryrun_multichip(1). Returns the BA window and the launches of the
+    sharded SLAM run."""
+    import torch.distributed as tdist
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch import matching
+    from pislam_tpu_torch.backend import ba
+    from pislam_tpu_torch.models.slam import init_state, track_map_state
+    from pislam_tpu_torch.models.slam_scan import make_slam_track_scan
+    from pislam_tpu_torch.models.visual_odometry import make_vo_scan
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.ops.pyramid import build_pyramid
+    from pislam_tpu_torch.parallel import dist, mesh as meshmod
+    from pislam_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_part = time.perf_counter()
+    torch.cuda.set_device(dev)
+    tdist.init_process_group(DIST_BACKEND, init_method=f"tcp://localhost:{_free_port()}",
+                             world_size=1, rank=0)
+    try:
+        mesh = meshmod.make_mesh(pt.MeshConfig())
+        if tuple(mesh.shape) != (1, 1) or tdist.get_backend() != DIST_BACKEND:
+            raise AssertionError(f"mesh {tuple(mesh.shape)} on {tdist.get_backend()}")
+        cfg = slam_config()
+        args = k5_cases["512x8192 gated"][:4]
+        for name, got, want in zip(("idx", "dist"), dist.make_sharded_match(mesh)(*args),
+                                   matching.match(*args)):
+            require_equal(f"sharded match 512x8192 {name}", got, want)
+
+        want = track_map_state(cfg, *track)
+        got = dist.make_sharded_map_tracker(cfg, mesh)(*track)
+        if int(got[2]) != int(want[2]) or not torch.equal(got[3], want[3]):
+            raise AssertionError(f"sharded tracker: {int(got[2])} inliers against "
+                                 f"{int(want[2])}, or another association")
+        d_track = max(_max_diff(got[0], want[0]), _max_diff(got[1], want[1]))
+        n_inl = int(got[2])
+        if d_track > DIST_TRACK_TOL:
+            raise AssertionError(f"sharded tracker: R/t differ by {d_track}")
+
+        frames, intr, _ = seqs["eval_seq"]
+        ref = slam_res["eval_seq"]
+        bas = Recorder(ba, "bundle_adjust")
+        try:
+            slam = pt.KeyframeSLAM(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                                   mesh=mesh, device=dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            per_frame = [slam.process(f) for f in torch.as_tensor(frames).to(dev)]
+            torch.cuda.synchronize()
+            t_track = time.perf_counter() - t0
+            closure = slam.close_loop(min_matches=40, exclude_recent=3)
+            torch.cuda.synchronize()
+            t_close = time.perf_counter() - t0 - t_track
+            launches = kernels.launch_counts()
+        finally:
+            bas.restore()
+        bad = [i for i, o in enumerate(per_frame) if decision(o) != ref["decisions"][i]]
+        if bad or slam.keyframe_frames != ref["kf"] or not torch.equal(
+                slam.state.counters.cpu(), ref["counters"]):
+            raise AssertionError(f"sharded SLAM: frames {bad[:10]} decide otherwise, or the "
+                                 "keyframes or counters differ from phase 6's run")
+        if (closure["loop"], closure["used_graph"]) != (ref["closure"]["loop"],
+                                                         ref["closure"]["used_graph"]):
+            raise AssertionError(f"sharded SLAM: closure {closure} against {ref['closure']}")
+        d_traj = float(np.abs(np.stack(slam.trajectory) - ref["traj"]).max())
+        d_post = float(np.abs(slam.keyframe_positions() - ref["post"]).max())
+        if max(d_traj, d_post) > DIST_TRAJ_TOL:
+            raise AssertionError(f"sharded SLAM: trajectory within {d_traj}, keyframes "
+                                 f"within {d_post}")
+        # K1, K2 and orb_describe once per frame; K5 as phase 6's run launched it
+        # (once per tracked and once more per map-tracked frame, and the closure's)
+        want = {k: len(frames) for k in FUSED_PATH_KERNELS} | {"match_reduce": ref["k5"]}
+        if any(n != want.get(k, 0) for k, n in launches.items()):
+            raise AssertionError(f"sharded SLAM launches {launches}, expected {want}")
+
+        windows = [c for c in bas.calls if c[0].R.shape[0] <= 48]
+        if not windows:
+            raise AssertionError("sharded SLAM solved no windowed BA")
+        window, _, kw = windows[-1]
+        d_ba = {}
+        for solver in ("dense", "cg"):
+            opts = dict(iters=kw["iters"], damping=kw["damping"], huber=kw["huber"],
+                        solver=solver)
+            single, info_s = ba.bundle_adjust(window, **opts)
+            out, info = dist.make_distributed_ba(mesh, **opts)(dist.shard_ba_problem(window, 1))
+            d_ba[solver] = max(_max_diff(out.R, single.R), _max_diff(out.t, single.t))
+            if d_ba[solver] > DIST_BA_TOL:
+                raise AssertionError(f"distributed BA {solver}: R/t differ by {d_ba[solver]}")
+
+        vcfg = pt.PislamConfig()
+        pyrs = torch.stack([build_pyramid(torch.from_numpy(f).to(dev), vcfg.pyramid)
+                            for f in vga])
+        batch = dist.make_batch_extract(vcfg, mesh, dev)(pyrs)
+        single = pt.make_extract_fn(vcfg, dev)
+        for b in range(len(pyrs)):
+            if not features_equal(pt.Features(*(x[b] for x in batch)), single(pyrs[b])):
+                raise AssertionError(f"data-parallel extraction: VGA frame {b} differs")
+
+        streams = torch.stack([torch.as_tensor(seqs[name][0][:DIST_STREAM_FRAMES])
+                               for name in SEQUENCES]).to(dev)
+        nb = len(streams)
+        vo = dist.make_vo_streaming(vo_config(), *intr, mesh, device=dev)(
+            streams, [torch.Generator(device=dev).manual_seed(b) for b in range(nb)])
+        one = make_vo_scan(vo_config(), *intr, device=dev)
+        for b in range(nb):
+            want = one(streams[b], torch.Generator(device=dev).manual_seed(b))
+            for k, v in want.items():
+                require_same(f"VO stream {b} {k}", vo[k][b], v)
+        states, streamed = dist.make_slam_streaming(cfg, *intr, mesh, keyframe_min_inliers=60,
+                                                keyframe_max_gap=3, device=dev)(
+            dist.batch_slam_states(cfg, nb, device=dev), streams)
+        scan = make_slam_track_scan(cfg, *intr, keyframe_min_inliers=60, keyframe_max_gap=3,
+                                    device=dev)
+        for b in range(nb):
+            st, want = scan(init_state(cfg, 7 + b, dev), streams[b], 0)
+            for k, v in want.items():
+                require_same(f"SLAM stream {b} {k}", streamed[k][b], v)
+            require_same(f"SLAM stream {b} counters", states[b].counters, st.counters)
+            for table in ("store", "lmap", "obs"):
+                mine, theirs = getattr(states[b], table), getattr(st, table)
+                for field, x, y in zip(mine._fields, mine, theirs):
+                    require_same(f"SLAM stream {b} {table}.{field}", x, y)
+
+        dryrun_multichip(1, device=dev)
+    finally:
+        tdist.destroy_process_group()
+    print(f"phase distributed world 1 (NCCL, mesh 1x1): sharded match 512x8192 and the "
+          f"sharded tracker on eval_seq4's map ({track[0].xyz.shape[0]} slots, "
+          f"{n_inl} inliers) equal the unsharded ones (tracker R/t within "
+          f"{d_track:.3g}); KeyframeSLAM(mesh) on eval_seq: {len(per_frame)} "
+          f"frames, keyframes, counters, loop {closure['loop']} and branch as phase 6's, "
+          f"trajectory within {d_traj:.3g}, keyframes after close_loop within {d_post:.3g}, "
+          f"K5 {launches['match_reduce']} launches, tracking {t_track / len(frames) * 1e3:.4f} ms/frame "
+          f"(phase 6: {ref['t_track'] / len(frames) * 1e3:.4f}), close_loop "
+          f"{t_close * 1e3:.1f} ms (phase 6: {ref['t_close'] * 1e3:.1f}; host clock to a "
+          f"synchronize); distributed BA on a "
+          f"{window.R.shape[0]}-camera window within {d_ba['dense']:.3g} (dense) / "
+          f"{d_ba['cg']:.3g} (CG) of bundle_adjust; VGA batch extraction, VO and SLAM "
+          f"streams ({nb} x {DIST_STREAM_FRAMES} frames) equal; dryrun_multichip(1) ok; "
+          f"{time.perf_counter() - t_part:.1f} s [{card}]")
+    return window, launches
+
+
+def _shard_slices(n: int, rows: int):
+    per = rows // n
+    return [slice(s * per, (s + 1) * per) for s in range(n)]
+
+
+def sharded_in_process(n, descA, descB, validA, validB, gate=None):
+    """n shards of K5 in one process: match_shard on each slice, the stacks
+    an all_gather would make, merge_match_shards."""
+    from pislam_tpu_torch.parallel import dist
+    parts = []
+    for s, rows in enumerate(_shard_slices(n, descB.shape[0])):
+        g = None if gate is None else (gate[0], gate[1][rows], gate[2])
+        parts.append(dist.match_shard(s, descA, descB[rows], validA, validB[rows], g))
+    return dist.merge_match_shards(*(torch.stack(x) for x in zip(*parts)))
+
+
+def ba_terms(prob, damping):
+    """The four Schur sums and the cost of one LM step, as an all-reduce
+    would be given them: (H_cc, b_c, sum_p W Hpp^-1 W^T, sum_p W Hpp^-1 b_p,
+    sum r^2)."""
+    from pislam_tpu_torch.backend import ba
+    terms = []
+
+    def record(x):
+        terms.append(x.clone())
+        return x
+
+    r, jc, jp, _ = ba.residuals_and_jacobians(prob)
+    hcc, bc, hpp, bp, w = ba.gn_normal_blocks(prob, r, jc, jp)
+    lam = torch.tensor(damping, dtype=prob.points.dtype, device=prob.points.device)
+    ba.schur_reduce(hcc, bc, hpp, bp, w, lam, prob.cam_valid, allsum=record)
+    return terms + [torch.sum(r * r)]
+
+
+def dist_shards(card, k5_cases, track, store, window):
+    """n = 2, 4 and 8 shards in one process at full width, each against the
+    unsharded K5 path bit for bit: the ungated 512x8192 match, gated map
+    tracking on eval_seq4's map at slam_config (also the association after
+    the ratio and cross-check filter), loop detection's store counts, and
+    BA's Schur sums and cost from the shards summed here within 1e-4
+    (relative). K5 launches exactly n times per sharded call. Times a
+    sharded match at each n beside the unsharded one. Returns this part's
+    launches (the timing's excluded)."""
+    from pislam_tpu_torch import matching
+    from pislam_tpu_torch.models.slam import project_landmarks
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.parallel import dist
+
+    cfg = slam_config()
+    mc = cfg.matcher
+    lmap, feats, pts, R0, t0 = track
+    args = k5_cases["512x8192 gated"][:4]
+    gate = (pts, project_landmarks(lmap, R0, t0), cfg.map.gate_radius)
+    cases = {"512x8192": (args, None),
+             "map tracking gated": ((feats.descriptors, lmap.descriptors, feats.valid,
+                                     lmap.valid), gate)}
+    whole = {name: kernels.match_reduce(*a, *(g or ())) for name, (a, g) in cases.items()}
+    counts = matching.match_many(store.descriptors, store.kp_valid, feats.descriptors,
+                                 feats.valid, max_distance=mc.max_distance, ratio=mc.ratio,
+                                 cross_check=mc.cross_check)[1]
+    damping = 1e-4
+    ba_whole = ba_terms(window, damping)
+    kernels.reset_launch_counts()
+    worst_ba = 0.0
+    for n in DIST_SHARDS:
+        for name, (a, g) in cases.items():
+            before = kernels.match_reduce.launches
+            got = sharded_in_process(n, *a, gate=g)
+            if kernels.match_reduce.launches - before != n:
+                raise AssertionError(f"{name} over {n} shards: "
+                                     f"{kernels.match_reduce.launches - before} K5 launches")
+            for part, x, y in zip(("best", "second", "idx", "col"), got, whole[name]):
+                require_same(f"{name} over {n} shards: {part}", x, y)
+            kw = dict(max_distance=(cfg.map.map_match_max_distance if g else 64),
+                      ratio=mc.ratio, cross_check=True)
+            for x, y in zip(matching._filter(*got, a[2], **kw),
+                            matching._filter(*whole[name], a[2], **kw)):
+                require_same(f"{name} over {n} shards: filtered", x, y)
+        part_counts = torch.cat([
+            matching.match_many(store.descriptors[rows], store.kp_valid[rows], feats.descriptors,
+                                feats.valid, max_distance=mc.max_distance, ratio=mc.ratio,
+                                cross_check=mc.cross_check)[1]
+            for rows in _shard_slices(n, store.descriptors.shape[0])])
+        require_same(f"store counts over {n} shards", part_counts, counts)
+        sharded = dist.shard_ba_problem(window, n)
+        sums = [sum(x) for x in zip(*(ba_terms(dist.ba_shard(sharded, n, s), damping)
+                                      for s in range(n)))]
+        for i, (x, y) in enumerate(zip(sums, ba_whole)):
+            err = _rel_err(x, y.double())
+            worst_ba = max(worst_ba, err)
+            if err > DIST_BA_TOL:
+                raise AssertionError(f"BA over {n} shards: term {i} off by {err:.3g}")
+    launches = kernels.launch_counts()
+    want = {"match_reduce": len(cases) * sum(DIST_SHARDS)}
+    if any(n != want.get(k, 0) for k, n in launches.items()):
+        raise AssertionError(f"shards in one process: launches {launches}, expected {want}")
+    times = []
+    for name, (a, g) in cases.items():
+        ms = {n: time_ms(lambda n=n: sharded_in_process(n, *a, gate=g)) for n in DIST_SHARDS}
+        ms[1] = time_ms(lambda: kernels.match_reduce(*a, *(g or ())))
+        times.append(f"{name} ({a[0].shape[0]}x{a[1].shape[0]}) " + ", ".join(
+            f"{n} shard{'s' if n > 1 else ''} {ms[n]:.4f} ms" for n in sorted(ms)))
+    print(f"phase distributed shards in one process: n = {', '.join(map(str, DIST_SHARDS))}: "
+          f"the 512x8192 match and gated map tracking bit-exact to one K5 (all four outputs "
+          f"and the filtered association), n K5 launches per call, store counts over "
+          f"{store.descriptors.shape[0]} keyframes equal, BA's Schur sums and cost on a "
+          f"{window.R.shape[0]}-camera window within {worst_ba:.3g} (relative, tolerance "
+          f"{DIST_BA_TOL:g}) [{card}]")
+    print("time distributed sharded match (K5 on each shard + the merge; CUDA-event time "
+          "per call, median of 30): " + "; ".join(times) + f" [{card}]")
+    return launches
+
+
+def gloo_child(port: int, rank: int, world: int, workdir: str, device: str = "cuda:0"):
+    """One rank of the gloo probe on ``device``: all_gather and all_reduce
+    of a tensor there; if gloo carries them, the sharded match and the
+    sharded map tracker over the group. Writes its results to
+    <workdir>/gloo<rank>.pt."""
+    import torch.distributed as tdist
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.backend.keyframes import LandmarkMap
+    from pislam_tpu_torch.ops import kernels
+    from pislam_tpu_torch.parallel import dist, mesh as meshmod
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                             rank=rank)
+    x = torch.full((4,), rank + 1, dtype=torch.int32, device=dev)
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(world)]
+        tdist.all_gather(parts, x)
+        return [p.cpu().tolist() for p in parts]
+
+    def all_reduce():
+        y = x.clone()
+        tdist.all_reduce(y)
+        return y.cpu().tolist()
+
+    out = {"probe": {}, "errors": {}}
+    for name, fn in (("all_gather", all_gather), ("all_reduce", all_reduce)):
+        try:
+            out["probe"][name] = fn()
+        except (RuntimeError, ValueError, NotImplementedError) as e:  # what the probe asks
+            out["errors"][name] = f"{type(e).__name__}: {e}"
+    if not out["errors"]:
+        inp = torch.load(Path(workdir) / "inputs.pt", weights_only=True)
+        on = {k: v.to(dev) for k, v in inp.items()}
+        cfg = slam_config()
+        mesh = meshmod.make_mesh(pt.MeshConfig(data_parallel=1, model_parallel=world))
+        k5 = kernels.match_reduce.launches
+        idx, d = dist.make_sharded_match(mesh)(on["d1"], on["d2"], on["v1"], on["v2"])
+        lmap = LandmarkMap(on["xyz"], on["ldesc"], on["obs_count"], on["lvalid"])
+        feats = pt.Features(on["codes"], on["fvalid"], on["angles"], on["fdesc"])
+        R, t, n, assoc = dist.make_sharded_map_tracker(cfg, mesh)(lmap, feats, on["pts"],
+                                                                  on["R0"], on["t0"])
+        out.update(idx=idx.cpu(), dist=d.cpu(), R=R.cpu(), t=t.cpu(), n=n.cpu(),
+                   assoc=assoc.cpu(), launches=kernels.match_reduce.launches - k5)
+    torch.save(out, Path(workdir) / f"gloo{rank}.pt")
+    tdist.destroy_process_group()
+
+
+def gloo_probe(dev, card, k5_cases, track):
+    """Whether gloo carries CUDA tensors for all_gather and all_reduce: two
+    processes on cuda:0 (NCCL refuses two ranks on one card). Where it does,
+    the 2-rank sharded match (512x8192) and sharded map tracker must equal
+    the unsharded path here; where it does not, the error is printed.
+    Returns the probe's result as text."""
+    import tempfile
+    from pislam_tpu_torch import matching
+    from pislam_tpu_torch.models.slam import track_map_state
+
+    lmap, feats, pts, R0, t0 = track
+    d1, d2, v1, v2 = k5_cases["512x8192 gated"][:4]
+    inputs = {"d1": d1, "d2": d2, "v1": v1, "v2": v2, "xyz": lmap.xyz,
+              "ldesc": lmap.descriptors, "obs_count": lmap.obs_count, "lvalid": lmap.valid,
+              "codes": feats.codes, "fvalid": feats.valid, "angles": feats.angles,
+              "fdesc": feats.descriptors, "pts": pts, "R0": R0, "t0": t0}
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pislam_gloo_") as tmp:
+        torch.save({k: v.cpu() for k, v in inputs.items()}, Path(tmp) / "inputs.pt")
+        port = _free_port()
+        code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+                "chip_smoke.gloo_child({port}, {rank}, {world}, {tmp!r}, {dev!r})")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code.format(root=str(ROOT), port=port, rank=r,
+                                               world=GLOO_RANKS, tmp=tmp, dev=str(dev))],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(GLOO_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            logs.append("timed out")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("gloo probe: a rank failed\n" + "\n".join(
+                log[-3000:] for log in logs))
+        res = [torch.load(Path(tmp) / f"gloo{r}.pt", weights_only=True)
+               for r in range(GLOO_RANKS)]
+    if res[0]["errors"]:
+        result = "; ".join(
+            [f"gloo {name} of a CUDA tensor raises {err}" for name, err in res[0]["errors"].items()]
+            + [f"gloo {name} of a CUDA tensor gives {got}" for name, got in res[0]["probe"].items()])
+        print(f"phase distributed gloo probe: {result} ({time.perf_counter() - t_part:.1f} s) "
+              f"[{card}]")
+        return result
+    want_idx, want_dist = matching.match(d1, d2, v1, v2)
+    cfg = slam_config()
+    want = track_map_state(cfg, *track)
+    for r, got in enumerate(res):
+        if got["probe"] != res[0]["probe"] or got["launches"] != 2:
+            raise AssertionError(f"gloo rank {r}: probe {got['probe']}, {got['launches']} K5")
+        require_same(f"gloo rank {r} sharded match idx", got["idx"], want_idx.cpu())
+        require_same(f"gloo rank {r} sharded match dist", got["dist"], want_dist.cpu())
+        require_same(f"gloo rank {r} tracker assoc", got["assoc"], want[3].cpu())
+        d = max(_max_diff(got["R"], want[0].cpu()), _max_diff(got["t"], want[1].cpu()))
+        if int(got["n"]) != int(want[2]) or d > DIST_TRACK_TOL:
+            raise AssertionError(f"gloo rank {r} tracker: {int(got['n'])} inliers, R/t {d}")
+    result = (f"gloo carries CUDA tensors (all_gather {res[0]['probe']['all_gather']}, "
+              f"all_reduce {res[0]['probe']['all_reduce']})")
+    print(f"phase distributed gloo probe: {result}; 2 ranks on cuda:0: the sharded match "
+          f"512x8192 and the sharded map tracker equal the unsharded path, K5 twice per rank "
+          f"({time.perf_counter() - t_part:.1f} s) [{card}]")
+    return result
+
+
+def dist_phase(dev, seqs, card, slam_res, k5_cases, vga):
+    """Phase 7c, the distributed layer on one card. Returns the launches of
+    its two counted paths: the sharded SLAM run and the in-process shards."""
+    t_phase = time.perf_counter()
+    track = dist_track_inputs(dev, seqs, slam_res)
+    window, world1 = dist_world1(dev, seqs, card, slam_res, k5_cases, vga, track)
+    shards = dist_shards(card, k5_cases, track, slam_res["eval_seq4"]["state"].store,
+                         window)
+    probe = gloo_probe(dev, card, k5_cases, track)
+    launches = {"KeyframeSLAM(mesh) eval_seq, world 1": world1,
+                "shards in one process": shards}
+    print(f"phase distributed launches: {json.dumps(launches)}")
+    print(f"phase distributed: {time.perf_counter() - t_phase:.1f} s; gloo probe: {probe} "
+          f"[{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2538,6 +3011,9 @@ def main():
 
     # phase 7b: the service (and the demo) on the card
     service_phase(dev, seqs, card, chunk_res, vga)
+
+    # phase 7c: the distributed layer on one card
+    dist_phase(dev, seqs, card, slam_res, k5_cases, vga)
 
     # phase 8: times
     for label, cfg in cfgs.items():

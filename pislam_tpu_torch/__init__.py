@@ -9,9 +9,12 @@ insertion with windowed bundle adjustment, the chunked device-resident
 tracking scan, the E/H homography bootstrap, map housekeeping, pose graph,
 loop closure, multi-session map merging and checkpoints), the SLAM service
 (``service.py``: frame sources, checkpoint/resume, TUM and PLY export, on
-``io/`` and ``parallel/elastic.CheckpointedRunner``) and the demo
-(``demo.py``). Only the distributed layer (the JAX package's ``parallel/``
-mesh and multi-process code) is not ported. The TPU kernels are CUDA kernels
+``io/`` and ``parallel/elastic.CheckpointedRunner``), the demo
+(``demo.py``) and the distributed layer on ``torch.distributed``
+(``parallel/``: the (data, model) mesh, the sharded match over the landmark
+map and the keyframe store behind ``KeyframeSLAM(mesh=...)``, distributed
+bundle adjustment, data-parallel streams, the multi-process bootstrap and a
+dry run). The TPU kernels are CUDA kernels
 written for sm_90a (``ops/kernels.py``, ``csrc/``); every kernel has a plain
 PyTorch version, which runs on the CPU and is what the kernels are held to.
 Entry points run on the card unless given ``device="cpu"`` (``--cpu`` for

@@ -1,16 +1,22 @@
 """Windowed sparse bundle adjustment with Schur-complement reduction.
 
-The port of ``pislam_tpu/backend/ba.py`` (without its ``axis_name``
-collectives: the distributed Schur reduction belongs to the port of
-``parallel/``). A window holds C poses, P landmark slots and O observation
-slots, each with a validity mask; invalid slots carry zero Jacobians and drop
-out of every sum. Two solvers of the reduced camera system:
+The port of ``pislam_tpu/backend/ba.py``. A window holds C poses, P landmark
+slots and O observation slots, each with a validity mask; invalid slots carry
+zero Jacobians and drop out of every sum. Two solvers of the reduced camera
+system:
 
 * dense: the camera-point coupling W stored per point, (P, C*6, 3), the
   Schur complement S = H_cc + lambda I - sum_p W_p Hpp_p^-1 W_p^T as one
   einsum, and a (6C, 6C) solve;
 * cg: S applied matrix-free from per-observation terms, block-Jacobi
   preconditioned conjugate gradients (global BA at 64 keyframes).
+
+Distributed BA (``parallel/dist.make_distributed_ba``): where the JAX
+package takes an ``axis_name`` and psums, these functions take ``allsum``, a
+sum over the ranks that hold the other landmark and observation shards (a
+``torch.distributed`` all-reduce, which NCCL orders on the stream). It sums
+the Schur reduction's four terms, the CG solver's camera-sized vectors on
+every iteration and LM's two costs; without it the window is solved whole.
 
 Landmark blocks H_pp are inverted in closed form (adjugate). LM runs a fixed
 number of iterations with the accept/reject expressed as ``torch.where`` per
@@ -156,12 +162,21 @@ def _pinned(cam_valid, n_fixed: int):
     return ~cam_valid | (torch.arange(cam_valid.shape[0], device=cam_valid.device) < n_fixed)
 
 
-def schur_reduce(hcc, bc, hpp, bp, w, damping, cam_valid, n_fixed: int = 1):
+def _whole(x):
+    return x
+
+
+def schur_reduce(hcc, bc, hpp, bp, w, damping, cam_valid, n_fixed: int = 1,
+                 allsum=None):
     """The reduced camera system (S (6C, 6C), b (6C,)) and the point-solve
     helpers (hpp_inv (P, 3, 3), wf (P, 6C, 3)):
 
     S = blockdiag(H_cc) + lambda I - sum_p Wp Hpp^-1 Wp^T
     b = b_c - sum_p Wp Hpp^-1 b_p
+
+    With ``allsum`` the inputs are one shard's partial terms: H_cc, b_c and
+    the two sums over p are summed over the shards; hpp_inv and wf stay the
+    shard's own, for its back-substitution.
     """
     C = hcc.shape[0]
     P = hpp.shape[0]
@@ -170,6 +185,8 @@ def schur_reduce(hcc, bc, hpp, bp, w, damping, cam_valid, n_fixed: int = 1):
     whi = torch.einsum("pij,pjk->pik", wf, hpp_inv)   # (P, 6C, 3)
     cross = torch.einsum("pik,plk->il", whi, wf)       # (6C, 6C)
     bcross = torch.einsum("pik,pk->pi", whi, bp).sum(0)
+    if allsum is not None:
+        hcc, bc, cross, bcross = (allsum(x) for x in (hcc, bc, cross, bcross))
     idx = torch.arange(C, device=hcc.device)
     s = (-cross).reshape(C, 6, C, 6)
     s[idx, :, idx, :] += hcc
@@ -206,26 +223,30 @@ def _pcg(apply, minv_apply, b, iters: int):
 
 
 def reduced_system_cg(p: BAProblem, r, jc, jp, damping, iters: int, n_fixed: int = 1,
-                      segs=None):
+                      segs=None, allsum=None):
     """Solve the Schur-reduced camera system matrix-free with block-Jacobi
     preconditioned CG:
 
         S x = (H_cc + lambda I) x - sum_o J_c^T J_p Hpp^-1 [sum_o' J_p^T J_c x]
 
     two segment sums per CG iteration, O(O) memory, never forming W or S.
+    With ``allsum`` (one shard's observations and landmarks) H_cc, b_c and
+    each camera accumulation are summed over the shards.
     Returns (dc_flat (6C,), hpp_inv, bp, points_from_cams).
     """
     C = p.R.shape[0]
     cam, pt = p.obs_cam.long(), p.obs_pt.long()
     segs = segs or _segments(p)
+    allsum = allsum or _whole
     hcc, bc, hpp, bp = _normal_terms(segs, r, jc, jp)
+    hcc, bc = allsum(hcc), allsum(bc)
     hpp_inv = _adjugate_inv3(hpp, damping)
     pin = _pinned(p.cam_valid, n_fixed)
 
     def cams_from_points(z):
         """(P, 3) landmark-space vector -> (C, 6) camera accumulation."""
         w = torch.einsum("oki,oi->ok", jp, z[pt])
-        return segs.cam.sum(torch.einsum("oki,ok->oi", jc, w))
+        return allsum(segs.cam.sum(torch.einsum("oki,ok->oi", jc, w)))
 
     def points_from_cams(x):
         """(C, 6) camera vector -> (P, 3) landmark accumulation W^T x."""
@@ -262,30 +283,34 @@ def _apply_update(p: BAProblem, dc, dp):
 
 
 def ba_iterations(p: BAProblem, iters: int, damping: float, solver: str = "dense",
-                  cg_iters: int = 64, huber: float = 0.0, n_fixed: int = 1):
+                  cg_iters: int = 64, huber: float = 0.0, n_fixed: int = 1,
+                  allsum=None):
     """The LM loop. solver="dense" factorises the (6C, 6C) reduced camera
     matrix (schur_reduce); "cg" solves it matrix-free (reduced_system_cg).
     With ``huber`` > 0 both the normal equations and the accept/reject
-    costs use the robustified residuals. Returns (problem, {"costs",
-    "final_damping"})."""
+    costs use the robustified residuals. With ``allsum`` ``p`` is one shard
+    of a problem laid out by ``parallel/dist.shard_ba_problem``: poses
+    replicated, landmarks and observations the shard's, every sum summed
+    over the shards. Returns (problem, {"costs", "final_damping"})."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"unknown BA solver {solver!r}")
     prob = p
     segs = _segments(p)     # the observations' cameras and points stay fixed
+    total = allsum or _whole
     lam = torch.tensor(damping, dtype=p.points.dtype, device=p.points.device)
     costs = []
     for _ in range(iters):
         r, jc, jp, _ = residuals_and_jacobians(prob, huber=huber)
-        cost0 = torch.sum(r * r)
+        cost0 = total(torch.sum(r * r))
         if solver == "cg":
             dc_flat, hpp_inv, bp, points_from_cams = reduced_system_cg(
-                prob, r, jc, jp, lam, cg_iters, n_fixed=n_fixed, segs=segs)
+                prob, r, jc, jp, lam, cg_iters, n_fixed=n_fixed, segs=segs, allsum=allsum)
             dc = dc_flat.reshape(-1, 6)
             dp = torch.einsum("pij,pj->pi", hpp_inv, bp - points_from_cams(dc))
         else:
             hcc, bc, hpp, bp, w = gn_normal_blocks(prob, r, jc, jp, segs)
             s, b, hpp_inv, wf = schur_reduce(hcc, bc, hpp, bp, w, lam, prob.cam_valid,
-                                             n_fixed=n_fixed)
+                                             n_fixed=n_fixed, allsum=allsum)
             dc_flat = torch.linalg.solve_ex(s, b)[0]
             dc = dc_flat.reshape(-1, 6)
             # back-substitute landmarks: dp = Hpp^-1 (b_p - W^T dc)
@@ -293,7 +318,7 @@ def ba_iterations(p: BAProblem, iters: int, damping: float, solver: str = "dense
                               bp - torch.einsum("pik,i->pk", wf, dc_flat))
         cand = _apply_update(prob, dc, dp)
         r1, _, _, _ = residuals_and_jacobians(cand, huber=huber)
-        cost1 = torch.sum(r1 * r1)
+        cost1 = total(torch.sum(r1 * r1))
         accept = cost1 < cost0
         prob = BAProblem(*(torch.where(accept, a, b) for a, b in zip(cand, prob)))
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),

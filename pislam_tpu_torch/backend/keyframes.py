@@ -109,7 +109,7 @@ def row(x, slot):
     return x.index_select(0, _rows(slot, x.device))[0] if torch.is_tensor(slot) else x[slot]
 
 
-def empty_store(capacity: int, max_kp: int, words: int = 8, device="cpu") -> KeyframeStore:
+def empty_store(capacity: int, max_kp: int, words: int = 8, device="cuda") -> KeyframeStore:
     return KeyframeStore(
         R=torch.eye(3, device=device).expand(capacity, 3, 3).contiguous(),
         t=torch.zeros((capacity, 3), device=device),
@@ -123,7 +123,7 @@ def empty_store(capacity: int, max_kp: int, words: int = 8, device="cpu") -> Key
     )
 
 
-def empty_map(capacity: int, words: int = 8, device="cpu") -> LandmarkMap:
+def empty_map(capacity: int, words: int = 8, device="cuda") -> LandmarkMap:
     return LandmarkMap(
         xyz=torch.zeros((capacity, 3), device=device),
         descriptors=torch.zeros((capacity, words), dtype=torch.int32, device=device),
@@ -132,7 +132,7 @@ def empty_map(capacity: int, words: int = 8, device="cpu") -> LandmarkMap:
     )
 
 
-def empty_obs(capacity: int, device="cpu") -> ObservationTable:
+def empty_obs(capacity: int, device="cuda") -> ObservationTable:
     return ObservationTable(
         kf=torch.zeros((capacity,), dtype=torch.int32, device=device),
         lm=torch.zeros((capacity,), dtype=torch.int32, device=device),

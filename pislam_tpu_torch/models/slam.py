@@ -215,12 +215,20 @@ class KeyframeSLAM:
     pyramid level 0; ``dist`` an optional (k1, k2, p1, p2) lens distortion.
     Runs on ``device`` (the card unless told otherwise). ``features_fn``
     replaces the image frontend (it maps what ``process`` is given to
-    ``Features`` on the device)."""
+    ``Features`` on the device).
+
+    With ``mesh`` (``parallel/mesh.make_mesh``; every rank of it builds the
+    same KeyframeSLAM and feeds it the same frames) map tracking against the
+    landmark map and loop detection against the keyframe store run sharded
+    over the mesh's model axis (``parallel/dist.py``): the same matches bit
+    for bit, merged through collectives. Every rank holds the whole state
+    and makes the same decisions; the chunk scan stays unsharded, as in the
+    JAX package."""
 
     def __init__(self, cfg: PislamConfig, fx, fy, cx, cy, features_fn=None,
                  keyframe_min_inliers: int = 60, keyframe_max_gap: int = 10,
                  seed: int = 7, metrics=None, reloc_min_matches: int = 30,
-                 mapping: bool = True, dist=None, device="cuda"):
+                 mapping: bool = True, dist=None, device="cuda", mesh=None):
         self.cfg = cfg
         self.metrics = metrics if metrics is not None else NullMetrics()
         self.vo = VisualOdometry(cfg, fx, fy, cx, cy, features_fn=features_fn, dist=dist,
@@ -262,6 +270,10 @@ class KeyframeSLAM:
         self._culled_slots: set = set()
         self._has_image_frontend = features_fn is None
         self._chunk_scan = None  # built by the first process_chunk
+        if mesh is not None:
+            from ..parallel import dist as pdist
+            self._track_map = pdist.make_sharded_map_tracker(cfg, mesh)
+            self._store_counts = pdist.make_sharded_store_counts(cfg, mesh)
 
     def _store_counts(self, store: kfs.KeyframeStore, feats: Features):
         mc = self.cfg.matcher

@@ -1,1 +1,3 @@
-"""Checkpointed running of long SLAM loops (single process)."""
+"""The distributed layer on torch.distributed: the (data, model) mesh,
+sharded matching, distributed BA, data-parallel streams and checkpointed
+multi-process running."""

@@ -15,10 +15,17 @@ PNG stream, TUM/KITTI layouts, or a committed .npz sequence) drives
 
 It runs on the CUDA card; ``--cpu`` runs it on the CPU with the kernels'
 plain versions. With no card and no ``--cpu`` it exits with an error.
+``--model-parallel N`` shards the landmark map and the keyframe store over
+N ranks (``KeyframeSLAM(mesh=...)``, one process per card under torchrun,
+NCCL; gloo with ``--cpu``): every rank tracks the same frames to the same
+result, and rank 0 alone writes the trajectory, the map, the checkpoints and
+the report.
 
 Run: python -m pislam_tpu_torch.service --seq data/eval_seq.npz --traj-out traj.txt
      python -m pislam_tpu_torch.service --frames <dir> --fx 525 --fy 525 \\
          --checkpoint-dir slam_ckpt --checkpoint-every 25 --metrics
+     torchrun --nproc-per-node 2 -m pislam_tpu_torch.service \\
+         --seq data/eval_seq.npz --model-parallel 2 --traj-out traj.txt
 """
 
 from __future__ import annotations
@@ -169,8 +176,9 @@ def _parser() -> argparse.ArgumentParser:
                          "RANSAC generator")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="shard the landmark map + keyframe store over N "
-                         "devices: not in this port yet (ROADMAP step 10); "
-                         "only 1 is accepted")
+                         "ranks (run under torchrun --nproc-per-node N): map "
+                         "tracking and loop detection match per shard and "
+                         "merge with one all_gather")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU with the kernels' plain versions "
                          "(default: the CUDA card, which must be present)")
@@ -180,9 +188,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        ap.error("--model-parallel > 1 shards the map over several devices, which the "
-                 "port does not do yet (ROADMAP step 10, parallel/)")
     if args.localization_only and args.chunk > 1:
         ap.error("--localization-only runs the per-frame loop (chunk 1)")
     if args.map_in and args.checkpoint_dir:
@@ -198,6 +203,21 @@ def main(argv=None):
         device = "cuda"
     else:
         ap.error("no CUDA card found; pass --cpu to run on the CPU")
+
+    from .parallel.elastic import initialize_multihost, process_count
+    mesh, primary = None, True
+    if args.model_parallel > 1:
+        from .config import MeshConfig
+        from .parallel.mesh import make_mesh
+        primary = initialize_multihost(device=device) == 0
+        if process_count() != args.model_parallel:
+            ap.error(f"--model-parallel {args.model_parallel} runs on as many ranks: "
+                     f"torchrun --nproc-per-node {args.model_parallel} -m "
+                     f"pislam_tpu_torch.service ... (this process group has "
+                     f"{process_count()})")
+        if device == "cuda":
+            device = f"cuda:{torch.cuda.current_device()}"
+        mesh = make_mesh(MeshConfig(model_parallel=args.model_parallel))
 
     from .evaluation import ate_rmse
     from .models.slam import KeyframeSLAM, init_state
@@ -224,7 +244,7 @@ def main(argv=None):
                         keyframe_min_inliers=args.keyframe_min_inliers,
                         keyframe_max_gap=args.keyframe_max_gap,
                         metrics=metrics, dist=distortion,
-                        mapping=not args.localization_only, device=device)
+                        mapping=not args.localization_only, device=device, mesh=mesh)
 
     if args.map_in:
         # both forms: a save_checkpoint file, or a --checkpoint-dir run
@@ -311,6 +331,8 @@ def main(argv=None):
         # selection (KeyframeSLAM.close_loop): global BA + cull included
         loop = slam.close_loop()["loop"]
 
+    if not primary:
+        return
     if args.traj_out:
         from .io.datasets import save_tum_trajectory
         save_tum_trajectory(args.traj_out, range(skipped, n_frames),

@@ -106,7 +106,7 @@ def _features(seed, k=8, words=2):
 def test_keyframe_store_ring_vs_jax():
     """Five inserts into three ring slots through next_slot: oldest evicted."""
     js = jkfs.empty_store(capacity=3, max_kp=8, words=2)
-    ts = tkfs.empty_store(capacity=3, max_kp=8, words=2)
+    ts = tkfs.empty_store(capacity=3, max_kp=8, words=2, device="cpu")
     assert_tuple_equal(ts, js)
     rng = np.random.default_rng(0)
     for fid in range(5):
@@ -141,7 +141,7 @@ def test_add_landmarks_and_observations_vs_jax(cursors):
     c = _append_case(sum(cursors))
     lm_cur, obs_cur = cursors
     jl, jo = jkfs.empty_map(c["L"], 2), jkfs.empty_obs(c["O"])
-    tl, to = tkfs.empty_map(c["L"], 2), tkfs.empty_obs(c["O"])
+    tl, to = tkfs.empty_map(c["L"], 2, device="cpu"), tkfs.empty_obs(c["O"], device="cpu")
     jl, jo, jlc, joc = jkfs.add_landmarks(
         jl, jo, jnp.int32(lm_cur), jnp.int32(obs_cur), jnp.asarray(c["xyz"]),
         jnp.asarray(c["desc"]), jnp.asarray(c["mask"]), 3, 5, jnp.asarray(c["uv_a"]),

@@ -1,7 +1,9 @@
 """The Hopper kernels on the card against their plain versions, bit-exact,
 and one SLAM run on the card against the CPU.
 
-These need a CUDA card and skip elsewhere. The card's machine has no jax,
+These need a CUDA card and skip elsewhere; the distributed ones at the end
+need two or more cards (one NCCL rank per card, under torchrun). The card's
+machine has no jax,
 so this file imports only the port, and runs there without the suite's
 conftest (which imports jax):
 
@@ -10,6 +12,8 @@ conftest (which imports jax):
 ``chip_smoke.py`` repeats the same checks at the main path's full sizes.
 """
 
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,7 +28,8 @@ from pislam_tpu_torch.ops.pyramid import build_pyramid
 
 torch.set_num_threads(1)
 
-DATA = Path(__file__).resolve().parent.parent / "data"
+ROOT = Path(__file__).resolve().parent.parent
+DATA = ROOT / "data"
 
 pytestmark = pytest.mark.cuda
 
@@ -465,3 +470,36 @@ def test_slam_chunk_on_card_matches_cpu(dev, monkeypatch):
     for k in ("fused_frontend_codes", "topk_keys", "orb_describe"):
         assert n_card[k] == 4
     assert n_card["match_reduce"] == 6
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return torch.cuda.device_count()
+
+
+def _run(*args, ranks=None):
+    """``python -m ...`` from the repository root, under torchrun with
+    ``ranks`` processes (one per card) where given."""
+    launch = ["-m", "torch.distributed.run", f"--nproc-per-node={ranks}"] if ranks else []
+    proc = subprocess.run([sys.executable, *launch, *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_dryrun_on_cards(cards):
+    """dryrun_multichip over NCCL, one rank per card: mesh (cards / 2) x 2."""
+    assert f"dryrun_multichip(n={cards}, " in _run("-m", "pislam_tpu_torch.parallel.dryrun",
+                                                  ranks=cards)
+
+
+def test_service_model_parallel_on_cards(cards, tmp_path):
+    """--model-parallel N over N cards (NCCL), eval_seq with the end-of-run
+    closure: the TUM rows of the service on one card, bit for bit."""
+    seq = str(DATA / "eval_seq.npz")
+    _run("-m", "pislam_tpu_torch.service", "--seq", seq, "--model-parallel", str(cards),
+         "--traj-out", str(tmp_path / "sharded.txt"), ranks=cards)
+    _run("-m", "pislam_tpu_torch.service", "--seq", seq, "--traj-out", str(tmp_path / "one.txt"))
+    assert (tmp_path / "sharded.txt").read_text() == (tmp_path / "one.txt").read_text()

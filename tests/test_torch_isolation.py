@@ -67,6 +67,14 @@ def test_source_check_covers_the_service():
         "parallel/elastic")} <= sources
 
 
+def test_source_check_covers_the_distributed_layer():
+    """The mesh, the sharded match / map / BA and the streams, and the dry
+    run are among the sources test_no_jax_import_in_source reads."""
+    sources = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    assert {f"pislam_tpu_torch/parallel/{name}.py" for name in (
+        "mesh", "dist", "dryrun", "elastic")} <= sources
+
+
 def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 

@@ -182,14 +182,14 @@ def test_service_png_sources(tmp_path, capsys, layout):
 
 
 @pytest.mark.parametrize("args, message", [
-    (["--model-parallel", "2", "--cpu"], "ROADMAP step 10"),
+    (["--model-parallel", "2", "--cpu"], "torchrun --nproc-per-node 2"),
     (["--map-in", "m", "--checkpoint-dir", "c", "--cpu"], "mutually exclusive"),
     (["--localization-only", "--chunk", "4", "--cpu"], "per-frame loop"),
     ([], "pass --cpu"),
 ])
 def test_service_argument_errors(capsys, args, message):
-    """--model-parallel > 1 waits for ROADMAP step 10 (the JAX package's
-    tests/test_service.py::test_service_sharded_map_mode); the other
+    """--model-parallel N needs a process group of N ranks (torchrun; the
+    sharded run itself is in tests/test_torch_multiprocess.py); the other
     combinations are refused as the JAX service refuses them; with no card
     and no --cpu the service stops instead of falling back."""
     if not args and torch.cuda.is_available():

@@ -212,15 +212,15 @@ def test_slam_state_from_numpy_round_trip(jax_run):
 
 
 def test_unported_options_raise(seq, tmp_path):
-    """Every part of KeyframeSLAM but ``mesh`` is ported: checkpoints (held
-    in tests/test_torch_checkpoint.py), the E/H bootstrap and the chunk
-    path, which refuses what the JAX package refuses
-    (tests/test_torch_slam_scan.py holds both)."""
+    """Every part of KeyframeSLAM is ported: checkpoints (held in
+    tests/test_torch_checkpoint.py), the E/H bootstrap and the chunk path,
+    which refuses what the JAX package refuses (tests/test_torch_slam_scan.py
+    holds both), and ``mesh`` (tests/test_torch_parallel.py)."""
     _, intr = seq
     cfg = port_config(slam_config())
     slam = pt.KeyframeSLAM(dataclasses.replace(cfg, vo=dataclasses.replace(
         cfg.vo, bootstrap_model_select=True)), *intr, device="cpu")
-    assert "mesh" not in inspect.signature(pt.KeyframeSLAM).parameters
+    assert inspect.signature(pt.KeyframeSLAM).parameters["mesh"].default is None
     slam.save_checkpoint(str(tmp_path / "map.pt"))
     slam.restore_checkpoint(str(tmp_path / "map.pt"))
     assert slam.num_keyframes == 0 and slam.keyframes_inserted == 0
