@@ -9,12 +9,13 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: nvcc compiles the ten Hopper kernels from the eleven .cu sources
+2. build: nvcc compiles the eleven Hopper kernels from the eleven .cu sources
    of pislam_tpu_torch/csrc, one process per source, all at once; the
    build's seconds, each kernel's registers and shared memory, and the count
    of IGMMA (int8 wgmma) instructions in the library's SASS.
 3. kernels: K1-K4, orb_describe (K3 + K4 in one launch), K4's atan2 bins,
-   K6, K4d, K3c and K3a against their plain PyTorch versions on the card,
+   K6, K4d, orb_describe_dense (K3 + K4d), K3c and K3a against their plain
+   PyTorch versions on the card,
    bit-exact, at the extraction shapes (VGA 8-level pyramid with 2048
    keypoints, and the eval config's 4-level 384x256 pyramid with 512),
    including invalid and edge keypoints and an atan2 sweep; orb_describe
@@ -23,8 +24,12 @@ prints no result line):
    tiles (32x64, 16x32) forced; K2 also on fewer survivors than k, n = k, n = k + 1, every
    key INT32_MIN, survivors sharing their top byte and k = 8192 over VGA's
    keys; K6 on the unfused
-   frontend's scored grid (its top-k gives K1's keypoints), K4d at K and
-   2048 keypoints (also against K4's bits), K3c on 2048 keypoints' strip
+   frontend's scored grid (its top-k gives K1's keypoints), K4d at K, 1,
+   2048 and 8192 keypoints and with one window repeated at 2048 and 8192
+   (one bin), with the BRIEF weights (also against K4's bits) and a seeded
+   random gm; orb_describe_dense on orb_describe's cases, at 2048 and 8192,
+   one code repeated at 2048 and 8192 and with a random gm (also against
+   orb_describe); K3c on 2048 keypoints' strip
    rows (also against K3's bytes), K3a on each pyramid; K5 (ungated and
    gated) bit-exact at (512, 512) from eval features, (2048, 2048) from VGA
    features, (2048, 16384) tiled as tools/ab_match.py tiles it, and gated
@@ -46,14 +51,16 @@ prints no result line):
    and orb_describe launch once per frame, K3 and K4 never. Then, each a
    path of its own with exact launch counts, the same frames with
    fused_upstream=False (K6, orb_describe) and with brief_variant="dense"
-   (K3 then K4d), bit-exact against the default path, and with odd-border
+   (orb_describe_dense), bit-exact against the default path, and with odd-border
    bucketing (K6) against its own plain path.
 5. VO path: make_vo_scan(vo_config(), device="cuda") over the four
    data/eval_seq*.npz sequences (416 frames); each sequence's ATE must lie
    within 0.005 of the JAX package's (EVAL_r05.json vo_ate_rmse); every
    kernel's launch count must reach the frames (K5: the transitions); on
    eval_seq the plain path on the card gives the same matches and decisions
-   frame by frame, and the CPU agrees on the first 4 transitions.
+   frame by frame, and the CPU agrees on the first 4 transitions. VO with
+   brief_variant="dense" over eval_seq repeats the default path's run bit
+   for bit (K1, K2, orb_describe_dense per frame, K5 per transition).
 6. SLAM path: KeyframeSLAM(slam_config(), device="cuda") over
    the four sequences at full length, then close_loop, with exact launch
    counts; the CPU replays every frame and each closure from the card's
@@ -114,7 +121,10 @@ prints no result line):
    torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
    plan's tile and under each tile forced; orb_describe against the
    composition it replaced, decode + K3 + K4 + masks, in turns old, new,
-   new, old, alone and inside the extraction), SLAM stage times,
+   new, old, alone and inside the extraction; orb_describe_dense against
+   decode + K3 + K4d + packing + masks the same way, with device operations
+   per dense extraction; torch._int_mm over K4d's whole product as a
+   superset reference; an empty kernel, the launch floor), SLAM stage times,
    torch.profiler windows over 20 VO and
    20 SLAM frames, and which operations make the host wait (per SLAM frame,
    and per chunk of 8 by line, inside the scan's frame loop and outside);
@@ -127,6 +137,7 @@ The line before the last is {"kernels": [...]}, the last line is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -460,17 +471,62 @@ def kernel_phase(dev, pyramids, cfgs):
             f"K6 {label}", red, kernels.reduce_codes_4x_plain(scored)))
         if not torch.equal(nms.select_topk_codes(red, k)[0], feats[label].codes):
             raise AssertionError(f"K6 {label}: its top-k differs from K1's keypoints")
-        # K4d on the path's windows, and at K = 2048 at the eval shape too
+        # K4d on the path's windows, K = 1, 2048 and 8192 (the path's repeated),
+        # one window repeated (every keypoint in one bin) at 2048 and 8192, the
+        # brief weights (also against K4) and a seeded random gm
         gm = brief.dense_weights(dev)
-        for name, f in ((label, flat), (f"{label} x4", flat.repeat(4, 1)[:2048])):
-            ang, bits = kernels.orb_select_bits(f, gm)
-            pang, pbits = kernels.orb_select_bits_plain(f, gm)
-            k4ang, k4desc = kernels.orb_select(f, *tables, 8)
-            errs["orb_select_bits"] = max(errs["orb_select_bits"],
-                                          require_equal(f"K4d {name} bins", ang, pang),
-                                          require_equal(f"K4d {name} bits", bits, pbits))
-            require_equal(f"K4d {name} vs K4 bins", ang, k4ang.to(torch.int32))
-            require_equal(f"K4d {name} vs K4 bits", brief._pack_bits_u8(bits, 8), k4desc)
+        rand_gm = torch.as_tensor(np.random.default_rng(12).integers(
+            -128, 128, (1024, kernels.GM_COLS)).astype(np.int8), device=dev)
+        dense_flats = {"path": flat, "K=1": flat[:1].contiguous(),
+                       "x4": flat.repeat(4, 1)[:2048], "x16": flat.repeat(16, 1)[:8192],
+                       "one bin 2048": flat[:1].repeat(2048, 1),
+                       "one bin 8192": flat[:1].repeat(8192, 1)}
+        for (name, f), (gname, g) in itertools.product(dense_flats.items(),
+                                                        (("brief", gm), ("random gm", rand_gm))):
+            ang, bits = kernels.orb_select_bits(f, g)
+            pang, pbits = kernels.orb_select_bits_plain(f, g)
+            errs["orb_select_bits"] = max(
+                errs["orb_select_bits"],
+                require_equal(f"K4d {label} {name} {gname} bins", ang, pang),
+                require_equal(f"K4d {label} {name} {gname} bits", bits, pbits))
+            if name.startswith("one bin") and torch.unique(ang).numel() != 1:
+                raise AssertionError(f"K4d {label} {name}: more than one bin")
+            if gname == "brief":
+                k4ang, k4desc = kernels.orb_select(f, *tables, 8)
+                require_equal(f"K4d {label} {name} vs K4 bins", ang, k4ang.to(torch.int32))
+                require_equal(f"K4d {label} {name} vs K4 bits", brief._pack_bits_u8(bits, 8),
+                              k4desc)
+        # orb_describe_dense on the cases of orb_describe, K = 2048 and 8192
+        # (the path's codes repeated), one code repeated at 2048 and 8192, and
+        # a random gm; with the brief weights also against orb_describe
+        for name, (c, v) in {
+                "path": (dcodes, dvalid), "all invalid": (dcodes, torch.zeros_like(dvalid)),
+                "K=1": (dcodes[:1], dvalid[:1]),
+                "code 0": (torch.zeros(3, dtype=torch.int64, device=dev),
+                           torch.tensor([True, False, True], device=dev)),
+                "x4": (dcodes.repeat(4)[:2048], dvalid.repeat(4)[:2048]),
+                "x16": (dcodes.repeat(16)[:8192], dvalid.repeat(16)[:8192]),
+                "one bin 2048": (codes[:1].repeat(2048), valid[:1].repeat(2048)),
+                "one bin 8192": (codes[:1].repeat(8192), valid[:1].repeat(8192))}.items():
+            for (gname, g), words in itertools.product((("brief", gm), ("random gm", rand_gm)),
+                                                       (fc.words, 4, 1)):
+                if gname == "random gm" and words != fc.words:
+                    continue
+                args = (pyr, c, v, g, words)
+                got = kernels.orb_describe_dense(*args)
+                want = kernels.orb_describe_dense_plain(*args)
+                errs["orb_describe_dense"] = max(
+                    errs["orb_describe_dense"],
+                    require_equal(f"orb_describe_dense {label} {name} {gname} words={words} "
+                                  f"angles", got[0], want[0]),
+                    require_equal(f"orb_describe_dense {label} {name} {gname} words={words}",
+                                  got[1], want[1]))
+                if gname == "brief":
+                    srt = kernels.orb_describe(pyr, c, v, *tables, words)
+                    require_equal(f"orb_describe_dense {label} {name} vs orb_describe angles",
+                                  got[0], srt[0])
+                    require_equal(f"orb_describe_dense {label} {name} vs orb_describe",
+                                  got[1], srt[1])
         # K3c on the keypoints' strip rows, against K3's bytes
         kx = torch.cat([xs, ex]).repeat(2048 // k + 1)[:2048]
         ky = torch.cat([ys, ey]).repeat(2048 // k + 1)[:2048]
@@ -509,6 +565,9 @@ def kernel_phase(dev, pyramids, cfgs):
             "orb_select_bits": ((flat, gm), None, bound_ms(
                 flat.numel() + bins * 1024 * 256 + 1024 * 2 + k * (4 + 256),
                 (2 * k * 1024 * (256 + 2), INT8_OPS_S))),
+            "orb_describe_dense": ((pyr, codes, valid, gm, fc.words), None,
+                                   describe_dense_bound(pyr, codes, valid, fd.angles,
+                                                        fc.words)),
             # each keypoint's 9 rows x 32 words, psi and phi; 1 KB out
             "realign_windows": (args3c, None, bound_ms(
                 k * (9 * 32 * 4 + 8 + 1024))),
@@ -529,7 +588,10 @@ def kernel_phase(dev, pyramids, cfgs):
           f"also at n=k, n=k+1, all INT32_MIN, a shared top "
           f"byte, k=8192), orb_describe (the path's keypoints and edge ones, all invalid, "
           f"code 0, K=1; 8, 4 and 1 words; also against the extraction's Features), K6, "
-          f"K4d (K and 2048 keypoints, also against K4), K3c (2048 "
+          f"K4d (the path's windows, K=1, 2048, 8192, one bin at 2048 and 8192; brief "
+          f"weights, also against K4, and a random gm), orb_describe_dense (orb_describe's "
+          f"cases, 2048, 8192, one bin at 2048 and 8192, a random gm; also against "
+          f"orb_describe), K3c (2048 "
           f"keypoints, also against K3's bytes) and K3a bit-exact (tolerance 0) on VGA and "
           f"eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
@@ -553,6 +615,26 @@ def describe_bound(pyr, codes, valid, angles, words) -> tuple[float, str]:
     nbytes = (int(touched.sum()) + bins * 2 * 32 * words * 2 + 1024 * 2
               + k * (8 + 1) + k * (1 + 4 * words))
     return bound_ms(nbytes, (n * 2 * 1024 * 2, INT8_OPS_S), (n * 32 * words, SCALAR_OPS_S))
+
+
+def describe_dense_bound(pyr, codes, valid, angles, words) -> tuple[float, str]:
+    """orb_describe_dense's bound on this input: the pixels of the valid
+    keypoints' windows (their union), the first 32 x words columns of the
+    slabs of the bins they use and the two moment columns, the codes and
+    valid flags in, angles and words out; 2 x 1024 x (32 words + 2) int8
+    operations per valid keypoint at the int8 rate."""
+    from pislam_tpu_torch.ops import kernels
+    h, w = pyr.shape
+    k, n = codes.numel(), int(valid.sum())
+    x = ((codes >> 12) & 0xFFF).clamp(kernels.RADIUS, w - kernels.RADIUS - 2)[valid]
+    y = (codes & 0xFFF).clamp(kernels.RADIUS, h - kernels.RADIUS - 2)[valid]
+    r = torch.arange(32, device=pyr.device) - kernels.RADIUS
+    touched = torch.zeros(h, w, dtype=torch.bool, device=pyr.device)
+    touched[(y[:, None] + r)[:, :, None], (x[:, None] + r)[:, None, :]] = True
+    bins = torch.unique(angles[valid]).numel()
+    nbytes = (int(touched.sum()) + bins * 1024 * 32 * words + 1024 * 2
+              + k * (8 + 1) + k * (1 + 4 * words))
+    return bound_ms(nbytes, (n * 2 * 1024 * (32 * words + 2), INT8_OPS_S))
 
 
 def old_describe(img, codes, valid, idx0, idx1, mom_w, words):
@@ -599,6 +681,69 @@ def describe_ab(dev, cfgs, results, card):
             print(f"time describe {label} turn {turn} {name}: {d_us:.2f} us, {d_n:g} device "
                   f"ops per call; extraction {e_us:.2f} us, {e_n:g} device ops per frame "
                   f"[{card}]")
+
+
+def old_describe_dense(img, codes, valid, gm, words):
+    """What orb_describe_dense computes, as the frontend computed it before
+    that kernel: the codes decoded, K3's windows, K4d's bins and bits, the
+    bits packed, then the masks by valid."""
+    from pislam_tpu_torch.ops import brief, kernels
+    from pislam_tpu_torch.utils import codec
+    xs = codec.decode_x(codes).to(torch.int32)
+    ys = codec.decode_y(codes).to(torch.int32)
+    flat = kernels.gather_windows_packed(img, xs, ys, valid)
+    angles, bits = kernels.orb_select_bits(flat, gm)
+    angles, desc = angles.to(torch.uint8), brief._pack_bits_u8(bits, words)
+    desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
+    return torch.where(valid, angles, torch.zeros_like(angles)), desc
+
+
+def dense_ab(dev, cfgs, results, card):
+    """The dense-BRIEF describe stage: orb_describe_dense against
+    old_describe_dense on each config's first extraction frame, bit-exact,
+    then their device time and device operations per call, alone and inside
+    the dense-BRIEF extraction, in turns old, new, new, old; beside them
+    torch._int_mm over the whole (K, 1024) x (1024, 7808) product of the
+    path's windows, a superset of K4d's work (every slab, not the selected
+    one), and the device time of an empty kernel, the floor of any launch."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.ops import brief, kernels
+
+    gm = brief.dense_weights(dev)
+    for label, cfg in cfgs.items():
+        pyr, feats = results[label][0]
+        dcfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
+            cfg.frontend, brief_variant="dense"))
+        args = (pyr, feats.codes, feats.valid, gm, cfg.frontend.words)
+        old_ext = pt.OrbExtractor(dcfg, ops=kernels.HOPPER._replace(
+            orb_describe_dense=old_describe_dense)).to(dev)
+        new_ext = pt.make_extract_fn(dcfg, dev)
+        for i, name in enumerate(("angles", "words")):
+            require_equal(f"old_describe_dense {label} {name}", old_describe_dense(*args)[i],
+                          kernels.orb_describe_dense(*args)[i])
+        if not features_equal(old_ext(pyr), new_ext(pyr)):
+            raise AssertionError(f"{label}: the dense extraction with old_describe_dense differs")
+        fns = {"old": (lambda: old_describe_dense(*args), lambda: old_ext(pyr)),
+               "new": (lambda: kernels.orb_describe_dense(*args), lambda: new_ext(pyr))}
+        for turn, name in enumerate(("old", "new", "new", "old")):
+            alone, extraction = fns[name]
+            d_us, d_n = device_us(alone)
+            e_us, e_n = device_us(extraction)
+            print(f"time describe dense {label} turn {turn} {name}: {d_us:.2f} us, {d_n:g} "
+                  f"device ops per call; dense extraction {e_us:.2f} us, {e_n:g} device ops "
+                  f"per frame [{card}]")
+        xs = (feats.codes >> 12 & 0xFFF).to(torch.int32)
+        ys = (feats.codes & 0xFFF).to(torch.int32)
+        flat = kernels.gather_windows_packed(pyr, xs, ys, feats.valid)
+        k4d_us, _ = device_us(lambda: kernels.orb_select_bits(flat, gm))
+        mm_us, mm_n = device_us(lambda: torch._int_mm(flat, gm))
+        print(f"time K4d {label} (K={flat.shape[0]}): orb_select_bits {k4d_us:.2f} us; "
+              f"torch._int_mm ({flat.shape[0]}, 1024) x (1024, {kernels.GM_COLS}), a superset "
+              f"reference (every slab, not the selected one), {mm_us:.2f} us "
+              f"({mm_n:g} device kernels) [{card}]")
+    empty_us, empty_n = device_us(lambda: kernels.empty_launch(dev))
+    print(f"time empty kernel (the launch floor): {empty_us:.2f} us, {empty_n:g} device "
+          f"kernels per call [{card}]")
 
 
 def unfused_scored(pyr, level_mask, fc):
@@ -919,7 +1064,7 @@ def extraction_variants(dev, cfgs, results):
     """The frontend's other configurations on the same frames, each a path of
     its own (counts set to 0 before it, read after): unfused (plain
     FAST/Harris/NMS, then K6, K2 and orb_describe) and dense BRIEF (K1, K2,
-    then K3 and K4d), each bit-exact against the default path's Features;
+    then orb_describe_dense), each bit-exact against the default path's Features;
     bucketing with an odd border (unfused, so K6) against its own plain
     path. Every kernel's launches per frame are exact. Returns the launch
     counts per variant."""
@@ -930,8 +1075,7 @@ def extraction_variants(dev, cfgs, results):
     variants = {
         "unfused": (dict(fused_upstream=False), unfused),
         "dense BRIEF": (dict(brief_variant="dense"),
-                        ("fused_frontend_codes", "topk_keys", "gather_windows_packed",
-                         "orb_select_bits")),
+                        ("fused_frontend_codes", "topk_keys", "orb_describe_dense")),
         "odd-border bucketing": (dict(log_bucket_size=4, bucket_limit=3, border=17), unfused),
     }
     out = {}
@@ -1057,6 +1201,37 @@ def vo_path(dev, seqs, card):
         print(f"time VO {name}: {walls[name] / len(frames) * 1e3:.4f} ms/frame over "
               f"{len(frames)} frames (host clock to synchronize) [{card}]")
     return launches, outs
+
+
+def dense_vo(dev, seqs, vo_outs):
+    """make_vo_scan with brief_variant="dense" over eval_seq, the same draws
+    as phase 5's run: K1, K2 and orb_describe_dense once per frame, K5 once
+    per transition, nothing else; every output equal to the default path's
+    bit for bit (the dense variant's Features are the sorted path's)."""
+    import pislam_tpu_torch as pt
+    from pislam_tpu_torch.ops import kernels
+
+    cfg = vo_config()
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                brief_variant="dense"))
+    frames, intr, _ = seqs["eval_seq"]
+    kernels.reset_launch_counts()
+    out = pt.make_vo_scan(cfg, *intr, device=dev)(
+        frames, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    n = len(frames)
+    runs = {"fused_frontend_codes": n, "topk_keys": n, "orb_describe_dense": n,
+            "match_reduce": n - 1}
+    wrong = {k: c for k, c in launches.items() if c != runs.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"dense VO: launches {wrong}, expected {runs} and no others")
+    want = vo_outs["eval_seq"]
+    differ = [k for k in want if not torch.equal(out[k].cpu(), want[k].cpu())]
+    if differ:
+        raise AssertionError(f"dense VO eval_seq: {differ} differ from the default path")
+    print(f"phase VO dense BRIEF eval_seq: {n} frames, every output ({', '.join(want)}) "
+          f"bit-identical to the default path's; launches {json.dumps(launches)}")
 
 
 def vo_stage_times(dev, seqs, card):
@@ -2994,8 +3169,9 @@ def main():
     extract, results = extraction_path(dev, frames, cfgs)
     variant_launches = extraction_variants(dev, cfgs, results)
 
-    # phase 5: the VO path
-    vo_path(dev, seqs, card)
+    # phase 5: the VO path, and VO with dense BRIEF
+    _, vo_outs = vo_path(dev, seqs, card)
+    dense_vo(dev, seqs, vo_outs)
 
     # phase 6: the SLAM path, and SLAM with the unfused frontend
     slam_launches, slam_res, default_feats = slam_path(dev, seqs, card)
@@ -3029,6 +3205,7 @@ def main():
               f"(device {ext_us:.2f} us, {ext_n:g} device ops per frame; plain path "
               f"{plain_ms:.4f}) [{card}]")
     describe_ab(dev, cfgs, results, card)
+    dense_ab(dev, cfgs, results, card)
     k5_shapes = {"eval": "512x512", "vga": "2048x2048"}
     for label in cfgs:
         a5 = k5_cases[k5_shapes[label]]
@@ -3066,14 +3243,14 @@ def main():
     # the kernels at the eval shapes, each with its launches on its path: the
     # chunk path for K1, K2, orb_describe and K5 (phase 6's per-frame counts
     # are on its launches line), SLAM with the unfused frontend for K6, the
-    # dense BRIEF extraction for K3 and K4d; K4 alone, K3c and K3a run on no
-    # path
+    # dense BRIEF extraction for orb_describe_dense; K3, K4 and K4d alone,
+    # K3c and K3a run on no path
     print(f"SLAM per-frame path launches: {json.dumps(slam_launches)}")
     paths = {name: (f"SLAM chunks of {CHUNK}", launches) for name in FUSED_PATH_KERNELS}
     paths["reduce_codes_4x"] = ("SLAM unfused", unfused_launches)
-    for name in ("gather_windows_packed", "orb_select_bits"):
-        paths[name] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
-    for name in ("orb_select", "realign_windows", "pack_row_strips"):
+    paths["orb_describe_dense"] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
+    for name in ("gather_windows_packed", "orb_select_bits", "orb_select", "realign_windows",
+                 "pack_row_strips"):
         paths[name] = ("none", {name: 0})
     out = []
     for k in kernels.COUNTED:

@@ -10,3 +10,14 @@ PISLAM_API int pislam_device_limits(int device, int* sms, int* smem) {
     err = cudaDeviceGetAttribute(smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   return (int)err;
 }
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// One launch of a kernel that does nothing: the fixed cost of a launch on
+// the device, the floor that the shortest kernels are measured against.
+PISLAM_API int pislam_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return (int)cudaGetLastError();
+}

@@ -8,7 +8,8 @@ steps of the path are Hopper kernels (``ops/kernels.py``): K1 fused frontend
 (or, unfused, FAST/Harris/NMS in plain torch then K6's code reduction), K2
 top-k, then ``orb_describe`` (K3's window gather and K4's ORB select in one
 launch, codes to masked angles and descriptors); ``brief_variant="dense"``
-takes K3 then K4d instead.
+takes ``orb_describe_dense`` instead (the same gather, then K4d's
+bin-grouped int8 product).
 
 Output is a fixed-capacity ``Features`` batch, strongest first by
 (score, x, y).
@@ -98,15 +99,9 @@ def _extract_impl(img, level_mask, cfg: PislamConfig, tables: brief.OrbTables,
 
     if fc.brief_variant == "sorted":
         angles, desc = ops.orb_describe(img, codes, valid, *tables, fc.words)
-        return Features(codes=codes, valid=valid, angles=angles, descriptors=desc)
-    xs = codec.decode_x(codes).to(torch.int32)
-    ys = codec.decode_y(codes).to(torch.int32)
-    flat = patches.gather_patches_packed_s8(img, xs, ys, valid,
-                                            gather=ops.gather_windows_packed)
-    angles, desc = brief.orb_compute_packed(flat, fc.words, fc.brief_variant,
-                                            tables, ops=ops)
-    desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
-    angles = torch.where(valid, angles, torch.zeros_like(angles))
+    else:
+        angles, desc = ops.orb_describe_dense(img, codes, valid,
+                                              brief.dense_weights(img.device), fc.words)
     return Features(codes=codes, valid=valid, angles=angles, descriptors=desc)
 
 

@@ -37,11 +37,12 @@ K3 gather_windows_packed csrc/gather_windows.cu
     gives the same bytes. Bound: 2 MB of
     output at K=2048, written once. Design: a direct gather, one thread
     per output word (4 window rows of one column), XOR 0x80 fused in;
-    the TPU's strips and rotates were workarounds for its gather cost.
+    the TPU's strips and rotates were workarounds for its gather cost. No
+    path runs it alone: both describe kernels gather their own windows.
 K4 orb_select            csrc/orb_select.cu
     Replaces ``orb_select_bits_sorted`` / ``_orb_sorted_kernel``
     (pallas_kernels.py:528); the dense ``orb_select_bits`` (K4d below)
-    gives identical bits. Bound: 2 MB of
+    gives identical bits. No path runs it alone. Bound: 2 MB of
     windows read once; the work is 2x1024 moment products and 256
     compares per keypoint. Design: one block per keypoint, window in
     shared memory, exact int32 moments, IEEE-exact atan2 bins (no FMA
@@ -68,8 +69,27 @@ K4d orb_select_bits      csrc/orb_select_dense.cu
     Replaces ``orb_select_bits`` / ``_orb_select_kernel``
     (pallas_kernels.py:465, :444) under its own contract: any (1024, 7808)
     int8 weight matrix, (K,) int32 bins, (K, 256) uint8 bits. Bound: bytes,
-    the selected 256 KB slabs. Design: one block per keypoint, the window in
-    shared memory, K4's atan2 bin, then only the selected slab's 256 dots.
+    the selected 256 KB slabs read once (2.5 us at 512 keypoints). Design:
+    two launches. A warp per keypoint computes its bin (K4's atan2 bin of
+    the moments against gm's columns 7680/7681); then a bin-grouped int8
+    tensor-core product (``mma.sync`` m16n8k32) on a fixed grid of
+    (ceil(K / T) + 29) keypoint tiles x column chunks, each block finding
+    its (bin, tile) from the bins' histogram and its members by a block
+    scan (no host sync, no atomics in device memory), streaming its slab
+    columns and the members' windows through shared memory by cp.async, the
+    slab transposed to K-major fragments by ``__byte_perm``. Each slab is
+    read about once per keypoint tile instead of once per keypoint.
+K3+K4d orb_describe_dense csrc/orb_select_dense.cu
+    The dense-BRIEF path's counterpart of ``orb_describe``: replaces
+    ``gather_windows_packed`` (pallas_kernels.py:195) then
+    ``orb_select_bits`` (:465, :480), the bit packing and the frontend's
+    masks (pislam_tpu/frontend.py:117-124). Codes -> masked angles and
+    descriptor words. Bound: bytes, the touched windows and the first 32 x
+    words columns of the used slabs. Design: ``orb_describe``'s
+    warp-per-keypoint gather writes each valid keypoint's window (1 KB) to
+    scratch with its bin, then K4d's product packs 32 columns into a word by
+    three xor shuffles; invalid keypoints get angle 0 and zero words. The
+    tile rule is mirrored in plain torch by ``dense_tiles`` for the tests.
 K3a pack_row_strips      csrc/pack_row_strips.cu
     Replaces ``pack_row_strips`` (pallas_kernels.py:73): 4 image rows to one
     u32 per column, in 256-column strips, K3c's input. No path runs it.
@@ -582,11 +602,22 @@ def atan2_bins(m10, m01):
 
 
 # ---------------------------------------------------------------------------
-# K4d: the dense rotation-select, under orb_select_bits' contract
+# K4d: the dense rotation-select, under orb_select_bits' contract, and the
+# dense-BRIEF path's describe stage on the same product
 # ---------------------------------------------------------------------------
 
 GM_COLS = 30 * 256 + 128      # 30 slabs of 256 bits + one tile of moment columns
 MOMENT_COL = 30 * 256
+N_BINS = 30
+# the product kernel's builds, (keypoints a tile, slab columns a block, rows
+# of k a stage), by the index the C entry points take; DENSE_BUILD is the one
+# the path runs
+DENSE_BUILDS = {1: (16, 128, 128), 2: (16, 256, 128), 4: (32, 128, 128), 5: (32, 256, 128),
+                7: (64, 128, 128), 8: (64, 256, 128), 10: (16, 128, 256), 12: (32, 128, 256),
+                13: (64, 128, 256)}
+DENSE_BUILD = 4
+# the design the product replaced (one block per keypoint), for the sweep
+DENSE_OLD_BUILD = 9
 
 
 def orb_select_bits_plain(flat, gm):
@@ -606,21 +637,112 @@ def orb_select_bits_plain(flat, gm):
     return a.to(torch.int32), bits.to(torch.uint8)
 
 
+def dense_tiles(keys, tile: int):
+    """The product kernel's rule for which keypoints a block takes, in plain
+    torch: (K,) keys (a bin in [0, 30), or anything else for a keypoint no
+    block takes) -> (slots, tile) int64 member indices, -1 where empty, and
+    (slots,) bins, -1 for a slot with no tile. Slot j of the
+    ceil(K / tile) + 29 that the grid has is the j-th tile when the bins'
+    ceil(count / tile) tiles are laid out bin by bin; a tile's members are
+    its bin's keypoints of rank tile * i .. tile * i + tile - 1, in index
+    order."""
+    keys = torch.as_tensor(keys).long()
+    slots = _cdiv(keys.numel(), tile) + N_BINS - 1
+    members = torch.full((slots, tile), -1, dtype=torch.int64)
+    bins = torch.full((slots,), -1, dtype=torch.int64)
+    j = 0
+    for b in range(N_BINS):
+        idx = torch.nonzero(keys == b).reshape(-1)
+        for i in range(0, idx.numel(), tile):
+            if j >= slots:
+                raise AssertionError("the grid has fewer slots than the tiles")
+            part = idx[i:i + tile]
+            members[j, :part.numel()] = part
+            bins[j] = b
+            j += 1
+    return members, bins
+
+
+def _dense_scratch(dev: torch.device, k: int):
+    """The product's scratch for k keypoints: the keys (bins), and the
+    windows in the product's byte order."""
+    return (torch.empty(k, dtype=torch.uint8, device=dev),
+            torch.empty((k, 1024), dtype=torch.int8, device=dev))
+
+
+def _check_dense(gm, name: str):
+    if gm.shape != (1024, GM_COLS):
+        raise ValueError(f"{name}: gm {tuple(gm.shape)}, expects (1024, {GM_COLS})")
+    if gm.data_ptr() % 16:
+        raise ValueError(f"{name}: gm must be 16-byte aligned (TMA)")
+
+
 @hopper_kernel(orb_select_bits_plain, "pislam_tpu_torch/csrc/orb_select_dense.cu",
                "pislam_tpu/ops/pallas_kernels.py:465")
-def orb_select_bits(flat, gm):
+def orb_select_bits(flat, gm, *, build: int = DENSE_BUILD):
     dev = flat.device
     _check(flat, "flat", torch.int8, 2, dev)
     _check(gm, "gm", torch.int8, 2, dev)
-    if flat.shape[1] != 1024 or gm.shape != (1024, GM_COLS):
-        raise ValueError(f"orb_select_bits: flat {tuple(flat.shape)}, gm {tuple(gm.shape)}: "
-                         f"expects (K, 1024) and (1024, {GM_COLS})")
+    if flat.shape[1] != 1024:
+        raise ValueError(f"orb_select_bits: flat {tuple(flat.shape)}, expects (K, 1024)")
+    _check_dense(gm, "orb_select_bits")
+    if flat.data_ptr() % 4:
+        raise ValueError("orb_select_bits: flat must be 4-byte aligned")
     k = flat.shape[0]
     angles = torch.empty(k, dtype=torch.int32, device=dev)
     bits = torch.empty((k, 256), dtype=torch.uint8, device=dev)
+    scratch = _dense_scratch(dev, k)
     _call("pislam_orb_select_dense", dev, flat.data_ptr(), k, gm.data_ptr(), GM_COLS,
-          angles.data_ptr(), bits.data_ptr())
+          angles.data_ptr(), bits.data_ptr(), *(t.data_ptr() for t in scratch), build)
     return angles, bits
+
+
+def orb_describe_dense_plain(img, codes, valid, gm, words: int):
+    """(H, W) u8 image + (K,) int64 codes and bool valid + (1024, 7808) int8
+    weights -> ((K,) u8 angle bins, (K, words) int32 descriptor words): K3's
+    windows at the codes' (x, y), K4d's bins and bits, the bits packed, then
+    angle 0 and zero words where not valid (the JAX package's dense branch,
+    pislam_tpu/frontend.py:117-124)."""
+    xs = codec.decode_x(codes).to(torch.int32)
+    ys = codec.decode_y(codes).to(torch.int32)
+    flat = gather_windows_packed_plain(img, xs, ys, valid)
+    angles, bits = orb_select_bits_plain(flat, gm)
+    angles = angles.to(torch.uint8)
+    desc = brief._pack_bits_u8(bits, words)
+    return (torch.where(valid, angles, torch.zeros_like(angles)),
+            torch.where(valid[:, None], desc, torch.zeros_like(desc)))
+
+
+@hopper_kernel(orb_describe_dense_plain, "pislam_tpu_torch/csrc/orb_select_dense.cu",
+               "pislam_tpu/ops/pallas_kernels.py:195,465")
+def orb_describe_dense(img, codes, valid, gm, words: int, *, build: int = DENSE_BUILD):
+    h, w = img.shape
+    if h < 32 or w < 32:
+        raise ValueError(f"image {h}x{w} is smaller than one 32x32 window")
+    dev = img.device
+    _check(img, "img", torch.uint8, 2, dev)
+    _check(codes, "codes", torch.int64, 1, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    _check(gm, "gm", torch.int8, 2, dev)
+    _check_dense(gm, "orb_describe_dense")
+    k = codes.numel()
+    if valid.numel() != k:
+        raise ValueError("codes and valid differ in length")
+    if not 1 <= words <= 8:
+        raise ValueError(f"orb_describe_dense: words={words} outside 1..8")
+    angles = torch.empty(k, dtype=torch.uint8, device=dev)
+    desc = torch.empty((k, words), dtype=torch.int32, device=dev)
+    scratch = _dense_scratch(dev, k)
+    _call("pislam_orb_describe_dense", dev, img.data_ptr(), h, w, codes.data_ptr(),
+          valid.view(torch.uint8).data_ptr(), k, gm.data_ptr(), GM_COLS, words,
+          angles.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in scratch), build)
+    return angles, desc
+
+
+def empty_launch(dev: torch.device):
+    """One launch of a kernel that does nothing (``csrc/device_limits.cu``):
+    what a launch costs the device, the floor of the shortest kernels."""
+    _call("pislam_empty", dev)
 
 
 # ---------------------------------------------------------------------------
@@ -839,8 +961,9 @@ def reduce_codes_4x(scored):
 
 class KernelSet(NamedTuple):
     """The kernels of the SLAM path: K1, K2 and ``orb_describe`` of the
-    default (fused, sorted BRIEF) frontend, K6 of the unfused one, K3 and
-    K4d of the dense BRIEF variant, and K5 of matching; K4 runs on no path."""
+    default (fused, sorted BRIEF) frontend, K6 of the unfused one,
+    ``orb_describe_dense`` of the dense BRIEF variant, and K5 of matching;
+    K3, K4 and K4d alone run on no path."""
 
     fused_frontend_codes: Callable
     topk_keys: Callable
@@ -850,17 +973,18 @@ class KernelSet(NamedTuple):
     reduce_codes_4x: Callable
     orb_select_bits: Callable
     orb_describe: Callable
+    orb_describe_dense: Callable
 
 
 # The wrappers: plain on CPU tensors, Hopper kernels on CUDA tensors.
 HOPPER = KernelSet(fused_frontend_codes, topk_keys, gather_windows_packed,
                    orb_select, match_reduce, reduce_codes_4x, orb_select_bits,
-                   orb_describe)
+                   orb_describe, orb_describe_dense)
 # The plain versions on any device: the reference the kernels are held to.
 PLAIN = KernelSet(fused_frontend_codes_plain, topk_keys_plain,
                   gather_windows_packed_plain, orb_select_plain,
                   match_reduce_plain, reduce_codes_4x_plain, orb_select_bits_plain,
-                  orb_describe_plain)
+                  orb_describe_plain, orb_describe_dense_plain)
 # Every kernel with a launch count: the kernel set's, and K3c and K3a, which
 # no path runs.
 COUNTED = (*HOPPER, realign_windows, pack_row_strips)

@@ -332,6 +332,7 @@ def test_frontend_on_card_matches_cpu(dev):
                                        "gather_windows_packed": 0, "orb_select": 0,
                                        "match_reduce": 0, "reduce_codes_4x": 0,
                                        "orb_select_bits": 0, "orb_describe": 1,
+                                       "orb_describe_dense": 0,
                                        "realign_windows": 0, "pack_row_strips": 0}
     _same(tuple(on_card), tuple(pislam_tpu_torch.make_extract_fn(cfg, device="cpu")(pyr)))
 
@@ -347,18 +348,63 @@ def test_k6(dev, shape):
     _same(kernels.reduce_codes_4x(*args), kernels.reduce_codes_4x_plain(*args))
 
 
-@pytest.mark.parametrize("k,gm", [(512, "brief"), (2048, "brief"), (300, "random")])
-def test_k4d(dev, k, gm):
+@pytest.mark.parametrize("k,gm,skew", [(512, "brief", False), (2048, "brief", False),
+                                       (300, "random", False), (1, "brief", False),
+                                       (8192, "brief", False), (2048, "brief", True),
+                                       (8192, "random", True)])
+@pytest.mark.parametrize("build", list(kernels.DENSE_BUILDS))
+def test_k4d(dev, k, gm, skew, build):
+    """K4d on random windows (each bin ~k/30 keypoints) and, skewed, one
+    window repeated (every keypoint in one bin), under every build."""
     rng = np.random.default_rng(k)
-    flat = t(rng.integers(-128, 128, (k, 1024)).astype(np.int8)).to(dev)
+    flat = rng.integers(-128, 128, (1 if skew else k, 1024)).astype(np.int8)
+    flat = t(np.repeat(flat, k, 0) if skew else flat).to(dev)
     g = (brief.dense_weights(dev) if gm == "brief" else
          t(rng.integers(-128, 128, (1024, kernels.GM_COLS)).astype(np.int8)).to(dev))
-    _same(kernels.orb_select_bits(flat, g), kernels.orb_select_bits_plain(flat, g))
+    got = kernels.orb_select_bits(flat, g, build=build)
+    _same(got, kernels.orb_select_bits_plain(flat, g))
+    if skew:
+        assert torch.unique(got[0]).numel() == 1
     if gm == "brief":
-        ang, bits = kernels.orb_select_bits(flat, g)
         k4ang, k4desc = kernels.orb_select(flat, *brief.OrbTables.build(dev), 8)
-        _same(ang, k4ang.to(torch.int32))
-        _same(brief._pack_bits_u8(bits, 8), k4desc)
+        _same(got[0], k4ang.to(torch.int32))
+        _same(brief._pack_bits_u8(got[1], 8), k4desc)
+
+
+@pytest.mark.parametrize("shape,k", [((800, 384), 512), ((2216, 640), 2048), ((64, 256), 1),
+                                     ((64, 256), 7), ((32, 32), 33), ((2216, 640), 8192)])
+@pytest.mark.parametrize("words", [8, 4, 1])
+def test_orb_describe_dense(dev, shape, k, words):
+    """The path's shapes with edge, invalid and out-of-image codes: against
+    its plain version on the card and the CPU, and against orb_describe."""
+    img, codes, valid = _describe_case(shape, k, k + words, dev)
+    gm = brief.dense_weights(dev)
+    before = kernels.orb_describe_dense.launches
+    got = kernels.orb_describe_dense(img, codes, valid, gm, words)
+    assert kernels.orb_describe_dense.launches == before + 1
+    _same(got, kernels.orb_describe_dense_plain(img, codes, valid, gm, words))
+    _same(got, kernels.orb_describe_dense_plain(img.cpu(), codes.cpu(), valid.cpu(),
+                                                gm.cpu(), words))
+    _same(got, kernels.orb_describe(img, codes, valid, *brief.OrbTables.build(dev), words))
+
+
+@pytest.mark.parametrize("case", ["all invalid", "one bin", "random gm"])
+@pytest.mark.parametrize("build", list(kernels.DENSE_BUILDS))
+def test_orb_describe_dense_cases(dev, case, build):
+    img, codes, valid = _describe_case((800, 384), 2048, 5, dev)
+    gm = brief.dense_weights(dev)
+    if case == "all invalid":
+        valid = torch.zeros_like(valid)
+    elif case == "one bin":
+        codes, valid = codes[9:10].repeat(2048), torch.ones_like(valid)
+    else:
+        rng = np.random.default_rng(6)
+        gm = t(rng.integers(-128, 128, (1024, kernels.GM_COLS)).astype(np.int8)).to(dev)
+    for words in (8, 3):
+        got = kernels.orb_describe_dense(img, codes, valid, gm, words, build=build)
+        _same(got, kernels.orb_describe_dense_plain(img, codes, valid, gm, words))
+        if case == "all invalid":
+            assert not got[0].any() and not got[1].any()
 
 
 def test_k3c(dev):

@@ -10,7 +10,7 @@ it, on the CPU, tolerance 0:
 - ``_extract_impl`` against the JAX extraction on a committed frame, for
   the fused (K1) and unfused (K6) branches and both BRIEF variants;
 - which kernels each branch and variant calls: ``orb_describe`` alone on
-  the sorted path, K3 then K4d on the dense one.
+  the sorted path, ``orb_describe_dense`` alone on the dense one.
 """
 
 import dataclasses
@@ -135,8 +135,8 @@ class _Spy:
 @pytest.mark.parametrize("fused,variant", BRANCHES)
 def test_extract_calls_orb_describe_on_the_sorted_path(fused, variant):
     """The sorted path calls orb_describe once and neither K3 nor K4; the
-    dense one K3 and K4d once and not orb_describe; both give the default
-    path's Features."""
+    dense one orb_describe_dense once and neither K3, K4d nor orb_describe;
+    both give the default path's Features."""
     spies = kernels.KernelSet(*(_Spy(fn) for fn in kernels.PLAIN))
     cfg = port_config(_cfg(fused, variant))
     pyr = build_pyramid(t(eval_frames()[2]), cfg.pyramid)
@@ -144,7 +144,8 @@ def test_extract_calls_orb_describe_on_the_sorted_path(fused, variant):
     calls = {name: spy.calls for name, spy in zip(kernels.KernelSet._fields, spies)}
     sorted_path = variant == "sorted"
     assert calls["orb_describe"] == int(sorted_path)
-    assert calls["gather_windows_packed"] == calls["orb_select_bits"] == int(not sorted_path)
+    assert calls["orb_describe_dense"] == int(not sorted_path)
+    assert calls["gather_windows_packed"] == calls["orb_select_bits"] == 0
     assert calls["orb_select"] == 0
     assert calls["fused_frontend_codes"] == int(fused)
     assert calls["reduce_codes_4x"] == int(not fused)
