@@ -21,44 +21,45 @@
 // Bound: bytes, the slabs of gm the keypoints' bins select (256 KB each, at
 // most 30 of them, 7.9 MB) read once, against 2 x 1024 x 256 int8 operations
 // per keypoint on the tensor cores (0.14 us at 512 keypoints): about 2.5 us
-// at eval's 512 keypoints, 3.1 us at VGA's 2048. One launch of a block per
-// keypoint that formed each dot as a serial loop (the design this replaces)
-// read a whole slab per keypoint from L2, K x 256 KB, and never used the
-// tensor cores.
+// at eval's 512 keypoints, 3.1 us at VGA's 2048. The one-block-per-keypoint
+// design this replaces formed each dot as a serial loop, read a whole slab
+// per keypoint from L2 (K x 256 KB) and never used the tensor cores.
 //
 // Design, two launches.
-// 1. The prologue, one warp per keypoint: the bin from the window's moments
-//    (dp4a against gm's two moment columns, staged once per block as packed
-//    words, then butterfly shuffles). The describe entry first gathers the
-//    window from the pyramid as orb_describe does (lane c loads column c, so
-//    it holds K3's packed words c, 32 + c, ...) and writes it to a 1 KB
-//    scratch slot per keypoint. Each keypoint's bin, or kNone for an invalid
-//    one, goes to a (K,) byte key.
-// 2. The product, on a fixed grid of (ceil(K / T) + 29) keypoint tiles x the
-//    slab's column chunks of C: enough for any histogram of 30 bins, from all
-//    K in one bin to 30 bins of one. Each block counts the bins of all K keys
-//    (warp match plus shared atomics), finds its (bin, tile) by prefix over
-//    the 30 tile counts, exits if it has none, then ranks the bin's members
-//    in index order by a block scan and takes ranks tile*T .. tile*T + T-1. No
-//    host sync, no atomics in device memory, and nothing depends on the order
-//    in which blocks run: the result repeats bit for bit. The block streams
-//    its C columns of the bin's slab and its members' windows through a ring
-//    of shared memory by cp.async, 128 rows of k a stage, and runs
-//    mma.sync m16n8k32 s8 x s8 -> s32 with the slab's columns as M (two
-//    16-row tiles per warp, 32 columns: one descriptor word) and the
-//    keypoints as N (8 a tile), since a bin holds ~17 keypoints at eval.
-//    Both operands must be K-major; gm's rows hold its columns side by side,
-//    so each thread loads 4 x 4 byte blocks of the slab and transposes them
-//    with __byte_perm into A fragments. The k order inside a 32-step is
-//    permuted (thread t's fragment k 4t..4t+3 and 16+4t..16+4t+3 are rows
-//    8t..8t+7) so that a B fragment is one 8-byte load of a window; the slab
-//    rows are XOR-swizzled by 32-byte group and window rows padded to 160
-//    bytes, so neither load has bank conflicts (C = 64 keeps a 2-way one on
-//    the slab). Where C < 256 the block's eight warps also split k and sum
-//    through shared memory. The epilogue takes each accumulator's sign; a
-//    thread holds 4 neighbouring columns of a keypoint, and three xor
-//    shuffles gather the 32 columns of a word in _pack_bits_u8's order (bit i
-//    of word i / 32 at position i % 32).
+// 1. The prologue, a keypoint a warp, 32 a block: the bin from the window's
+//    moments (dp4a against gm's two moment columns, staged once per block,
+//    then butterfly shuffles), and the window written to a 1 KB scratch slot
+//    in the product's byte order (mma_order). The describe entry first
+//    gathers the window from the pyramid as orb_describe does (lane c loads
+//    column c, so it holds K3's packed words c, 32 + c, ...); an invalid
+//    keypoint gets angle 0, zero words and the key kNone. Each keypoint's
+//    bin, or kNone, goes to a (K,) byte key.
+// 2. The product, on a fixed grid of (ceil(K / kTile) + 29) keypoint tiles x
+//    the slab's column chunks of kCols: enough for any histogram of 30 bins,
+//    from all K in one bin to 30 bins of one. Each block counts the bins of
+//    all K keys (warp match plus shared atomics), finds its (bin, tile) by
+//    prefix over the 30 tile counts, exits if it has none, then ranks the
+//    bin's members in index order by a block scan. No host sync, no atomics
+//    in device memory, and nothing depends on the order in which blocks run:
+//    the result repeats bit for bit. The block streams its columns of the
+//    bin's slab by TMA (each stage's boxes on an mbarrier; the bin alone
+//    decides them, so they start before the member search) and its members'
+//    windows by cp.async through a ring of shared memory, and runs mma.sync
+//    m16n8k32 s8 x s8 -> s32 with the slab's columns as M (two 16-row tiles a
+//    warp, 32 columns: one descriptor word) and the keypoints as N (8 a
+//    tile), skipping n-tiles past the tile's members. Both operands must be
+//    K-major; gm's rows hold its columns side by side, so each thread loads
+//    4 x 4 byte blocks of the slab and transposes them with __byte_perm into
+//    A fragments. The k order inside a 32-step is permuted so that a B
+//    fragment is one 8-byte load of a window and the A loads of a quad fall
+//    in distinct banks under TMA's swizzle (mma_order). With 128 columns a
+//    block its eight warps also split k and sum through shared memory. The
+//    epilogue takes each sum's sign; a thread holds 4 neighbouring columns of
+//    a keypoint, and three xor shuffles gather the 32 columns of a word in
+//    _pack_bits_u8's order (bit i of word i / 32 at position i % 32).
+// What remains is latency, not bytes or operations (PERF.md): the launch of
+// each kernel, the prologue's round trips, and the product block's chain of
+// key loads, histogram, member ranking and stage waits.
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is found at run time
 
 #include "common.cuh"
@@ -124,15 +125,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-__device__ unsigned long long* g_trace = nullptr;   // sweep probe: phase timestamps
-__device__ __forceinline__ void trace_mark(int i) {
-  if (g_trace != nullptr && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
-    g_trace[(blockIdx.y * gridDim.x + blockIdx.x) * 16 + i] = t;
-  }
 }
 
 // d += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 accumulators
@@ -275,50 +267,52 @@ describe_dense_gather_kernel(const uint8_t* __restrict__ img, int h, int w,
   }
 }
 
-// the product's shared-memory plan for T keypoints x C columns a block, a
-// ring of S stages of KC rows of k: C / 128 TMA boxes of KC x 128 slab bytes
-// (128-byte swizzle, 1024-byte aligned), then T window rows
-template <int T, int C, int KC, int S>
+// The product's block: kTile keypoints x kCols slab columns, with k streamed
+// through a ring of kStages stages of kRows rows, each stage kCols / 128 TMA
+// boxes of kRows x 128 slab bytes (128-byte swizzle, 1024-byte aligned), then
+// kTile window rows. Of the builds swept (keypoints 16, 32, 64; columns 128,
+// 256; rows 128 in 4 stages or 256 in 3), this was the fastest at VGA's 2048
+// keypoints and, of those within 10 % of it there, the fastest at eval's 512
+// (PERF.md).
+constexpr int kTile = 64, kCols = 128, kRows = 256, kStages = 3;
 struct Plan {
-  static constexpr int G = C / 32;             // 32-column groups: warps along M
+  static constexpr int G = kCols / 32;             // 32-column groups: warps along M
   static constexpr int KS = kWarps / G;        // warps splitting k
-  static constexpr int kChunks = 1024 / KC;
-  static constexpr int kBox = KC * 128;        // bytes of one TMA box
-  static constexpr int kWinStride = KC + 32;   // bytes of a staged window row
-  static constexpr int kGmBytes = (C / 128) * kBox;
-  static constexpr int kWinBytes = (T * kWinStride + 1023) / 1024 * 1024;
+  static constexpr int kChunks = 1024 / kRows;
+  static constexpr int kBox = kRows * 128;        // bytes of one TMA box
+  static constexpr int kWinStride = kRows + 32;   // bytes of a staged window row
+  static constexpr int kGmBytes = (kCols / 128) * kBox;
+  static constexpr int kWinBytes = (kTile * kWinStride + 1023) / 1024 * 1024;
   static constexpr int kStageBytes = kGmBytes + kWinBytes;
-  static constexpr int kRingBytes = S * kStageBytes;
-  static constexpr int kRedBytes = (KS - 1) * G * T * 32 * 4;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kRedBytes = (KS - 1) * G * kTile * 32 * 4;
   static constexpr int kSmem = (kRingBytes > kRedBytes ? kRingBytes : kRedBytes) + 1024;
-  static_assert(C % 128 == 0 && G * KS == kWarps && (KC / 32) % KS == 0,
+  static_assert(kCols % 128 == 0 && G * KS == kWarps && (kRows / 32) % KS == 0,
                 "warps must tile M and k");
-  static_assert(kChunks >= S && KC <= 256, "the ring holds at most all of k");
+  static_assert(kChunks >= kStages && kRows <= 256, "the ring holds at most all of k");
   static_assert(kSmem <= 227 * 1024, "the ring must fit one block's shared memory");
 };
 
 // bits != nullptr: orb_select_bits' (K, 256) bytes for every keypoint;
 // else desc's (K, words) words for the keypoints whose key is a bin
-template <int T, int C, int KC, int S>
 __global__ void __launch_bounds__(kThreads)
 dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
                      const int8_t* __restrict__ wins, const uint8_t* __restrict__ key, int k,
                      int ncols, uint8_t* __restrict__ bits, uint32_t* __restrict__ desc,
                      int words) {
-  using P = Plan<T, C, KC, S>;
+  using P = Plan;
   constexpr int G = P::G, KS = P::KS;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t s_bar[S];
+  __shared__ __align__(8) uint64_t s_bar[kStages];
   __shared__ int s_hist[32];
-  __shared__ int s_members[T];
+  __shared__ int s_members[kTile];
   __shared__ int s_warp[kWarps];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col0 = blockIdx.y * C;
+  const int col0 = blockIdx.y * kCols;
 
-  trace_mark(0);
-  if (tid < S) mbar_init(&s_bar[tid], 1);
+  if (tid < kStages) mbar_init(&s_bar[tid], 1);
   if (tid < 32) s_hist[tid] = 0;
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
@@ -343,7 +337,7 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
   // this block's (bin, tile): slot blockIdx.x of the tiles laid out bin by bin
   int bin = -1, tile = 0;
   for (int b = 0, start = 0; b < kBins; ++b) {
-    const int n = (s_hist[b] + T - 1) / T;
+    const int n = (s_hist[b] + kTile - 1) / kTile;
     if (bin < 0 && (int)blockIdx.x < start + n) {
       bin = b;
       tile = blockIdx.x - start;
@@ -351,36 +345,35 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
     start += n;
   }
   if (bin < 0) return;
-  trace_mark(1);
-  const int first = tile * T;
-  const int count = min(T, s_hist[bin] - first);    // members: n-tiles past them idle
+  const int first = tile * kTile;
+  const int count = min(kTile, s_hist[bin] - first);    // members: n-tiles past them idle
 
   // one thread loads the slab's boxes, each stage's on its own barrier
   auto issue_slab = [&](int chunk) {
-    uint8_t* dst = smem + (chunk % S) * P::kStageBytes;
-    uint64_t* bar = &s_bar[chunk % S];
+    uint8_t* dst = smem + (chunk % kStages) * P::kStageBytes;
+    uint64_t* bar = &s_bar[chunk % kStages];
     mbar_arrive_tx(bar, P::kGmBytes);
 #pragma unroll
-    for (int h = 0; h < C / 128; ++h)
-      tma_load_2d(dst + h * P::kBox, &gm_map, 256 * bin + col0 + 128 * h, chunk * KC, bar);
+    for (int h = 0; h < kCols / 128; ++h)
+      tma_load_2d(dst + h * P::kBox, &gm_map, 256 * bin + col0 + 128 * h, chunk * kRows, bar);
   };
   // the members' windows by cp.async, one commit group a stage
   auto issue_windows = [&](int chunk) {
-    uint8_t* dst = smem + (chunk % S) * P::kStageBytes + P::kGmBytes;
-    constexpr int kPieces = T * KC / 16;
+    uint8_t* dst = smem + (chunk % kStages) * P::kStageBytes + P::kGmBytes;
+    constexpr int kPieces = kTile * kRows / 16;
 #pragma unroll
     for (int p = tid; p < kPieces; p += kThreads) {
-      const int n = p / (KC / 16), c16 = p % (KC / 16);
+      const int n = p / (kRows / 16), c16 = p % (kRows / 16);
       const int m = s_members[n];
       if (m >= 0) cp_async16(dst + n * P::kWinStride + 16 * c16,
-                             wins + (size_t)m * 1024 + chunk * KC + 16 * c16);
+                             wins + (size_t)m * 1024 + chunk * kRows + 16 * c16);
     }
   };
   // the slab's stages depend on the bin alone: start them now
   if (tid == 0)
-    for (int c = 0; c < S; ++c) issue_slab(c);
+    for (int c = 0; c < kStages; ++c) issue_slab(c);
 
-  // the members: the bin's keys of rank first..first+T-1, in index order
+  // the members: the bin's keys of rank first..first+kTile-1, in index order
   int mine = 0;
   for (int base = 0; base < per; base += kKeyRegs) {
 #pragma unroll
@@ -394,48 +387,46 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
     if (lane >= off) incl += v;
   }
   if (lane == 31) s_warp[warp] = incl;
-  if (tid < T) s_members[tid] = -1;
+  if (tid < kTile) s_members[tid] = -1;
   __syncthreads();
   int rank = incl - mine;
   for (int i = 0; i < warp; ++i) rank += s_warp[i];
-  if (mine > 0 && rank < first + T && rank + mine > first) {
+  if (mine > 0 && rank < first + kTile && rank + mine > first) {
     for (int i = lo; i < hi; ++i) {
       if (key[i] == bin) {
-        if (rank >= first && rank < first + T) s_members[rank - first] = i;
+        if (rank >= first && rank < first + kTile) s_members[rank - first] = i;
         ++rank;
       }
     }
   }
   __syncthreads();
-  for (int c = 0; c < S; ++c) {
+  for (int c = 0; c < kStages; ++c) {
     issue_windows(c);
     cp_async_commit();
   }
-  trace_mark(2);
 
   const int cg = warp % G, ks = warp / G;
   const int g = lane >> 2, t = lane & 3;
   const bool active = col0 + 32 * cg < ncols;
   // this thread's 4 slab columns: 32-byte group cg % 4 of box cg / 4
   const int box = (cg >> 2) * P::kBox, grp = 2 * (cg & 3) + (g >> 2);
-  int acc[T / 8][2][4];
+  int acc[kTile / 8][2][4];
 #pragma unroll
-  for (int nt = 0; nt < T / 8; ++nt)
+  for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[nt][mt][r] = 0;
 
   for (int c = 0; c < P::kChunks; ++c) {
-    cp_async_wait<S - 1>();       // this stage's windows (every later stage's group pends)
+    cp_async_wait<kStages - 1>();       // this stage's windows (every later stage's group pends)
     __syncthreads();
     if (active) {
-      mbar_wait(&s_bar[c % S], (c / S) & 1);
-      if (c < 9) trace_mark(3 + c);
-      const uint8_t* sg = smem + (c % S) * P::kStageBytes + box;
-      const uint8_t* sw = smem + (c % S) * P::kStageBytes + P::kGmBytes;
+      mbar_wait(&s_bar[c % kStages], (c / kStages) & 1);
+      const uint8_t* sg = smem + (c % kStages) * P::kStageBytes + box;
+      const uint8_t* sw = smem + (c % kStages) * P::kStageBytes + P::kGmBytes;
 #pragma unroll
-      for (int st = ks; st < KC / 32; st += KS) {
+      for (int st = ks; st < kRows / 32; st += KS) {
         // rows 32 st + {2t, 2t+1, 8+2t, 9+2t | 16+2t, 17+2t, 24+2t, 25+2t} of
         // this thread's 4 columns; a 128-byte row r keeps its 16-byte chunk j
         // at j ^ (r & 7), and r & 7 = 2t + (i & 1) puts the quad's rows in
@@ -452,7 +443,7 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
         const uint32_t a0[4] = {v[0], v[1], v[4], v[5]};   // columns 4g, 4g + 1
         const uint32_t a1[4] = {v[2], v[3], v[6], v[7]};   // columns 4g + 2, 4g + 3
 #pragma unroll
-        for (int nt = 0; nt < T / 8; ++nt) {
+        for (int nt = 0; nt < kTile / 8; ++nt) {
           if (8 * nt >= count) break;
           const uint2 b = *reinterpret_cast<const uint2*>(
               sw + (nt * 8 + g) * P::kWinStride + 32 * st + 8 * t);
@@ -462,9 +453,9 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
       }
     }
     __syncthreads();              // every warp is done with this stage: refill it
-    if (c + S < P::kChunks) {
-      if (tid == 0) issue_slab(c + S);
-      issue_windows(c + S);
+    if (c + kStages < P::kChunks) {
+      if (tid == 0) issue_slab(c + kStages);
+      issue_windows(c + kStages);
     }
     cp_async_commit();
   }
@@ -473,33 +464,32 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
     int32_t* red = reinterpret_cast<int32_t*>(smem);   // the ring is free
     if (ks > 0 && active) {
 #pragma unroll
-      for (int nt = 0; nt < T / 8; ++nt)
+      for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            red[((((ks - 1) * G + cg) * T) + (nt * 2 + mt) * 4 + r) * 32 + lane] = acc[nt][mt][r];
+            red[((((ks - 1) * G + cg) * kTile) + (nt * 2 + mt) * 4 + r) * 32 + lane] = acc[nt][mt][r];
     }
     __syncthreads();
     if (ks > 0 || !active) return;
     for (int s = 1; s < KS; ++s) {
 #pragma unroll
-      for (int nt = 0; nt < T / 8; ++nt)
+      for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            acc[nt][mt][r] += red[((((s - 1) * G + cg) * T) + (nt * 2 + mt) * 4 + r) * 32 + lane];
+            acc[nt][mt][r] += red[((((s - 1) * G + cg) * kTile) + (nt * 2 + mt) * 4 + r) * 32 + lane];
     }
   } else if (!active) {
     return;
   }
 
-  trace_mark(12);
   // accumulator (row g | g + 8 of m-tile mt, keypoint 2t + e) is column
   // 4g + 2 mt + (0 | 1) of this warp's 32
 #pragma unroll
-  for (int nt = 0; nt < T / 8; ++nt) {
+  for (int nt = 0; nt < kTile / 8; ++nt) {
     if (8 * nt >= count) break;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -550,130 +540,40 @@ cudaError_t gm_tensor_map(CUtensorMap* map, const int8_t* gm, int gcols, int row
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int T, int C, int KC, int S>
-cudaError_t launch_product(const int8_t* wins, const uint8_t* key, int k, const int8_t* gm,
-                           int gcols, int ncols, uint8_t* bits, uint32_t* desc, int words,
-                           cudaStream_t stream) {
+cudaError_t product(const int8_t* wins, const uint8_t* key, int k, const int8_t* gm,
+                    int gcols, int ncols, uint8_t* bits, uint32_t* desc, int words,
+                    cudaStream_t stream) {
   static int have[kMaxDevices] = {};
-  constexpr int kSmem = Plan<T, C, KC, S>::kSmem;
-  cudaError_t err = allow_dynamic_smem(dense_product_kernel<T, C, KC, S>, kSmem, have);
+  cudaError_t err = allow_dynamic_smem(dense_product_kernel, Plan::kSmem, have);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  err = gm_tensor_map(&map, gm, gcols, KC);
+  err = gm_tensor_map(&map, gm, gcols, kRows);
   if (err != cudaSuccess) return err;
-  const dim3 grid((k + T - 1) / T + kBins - 1, (ncols + C - 1) / C);
-  dense_product_kernel<T, C, KC, S><<<grid, kThreads, kSmem, stream>>>(
-      map, wins, key, k, ncols, bits, desc, words);
+  const dim3 grid((k + kTile - 1) / kTile + kBins - 1, (ncols + kCols - 1) / kCols);
+  dense_product_kernel<<<grid, kThreads, Plan::kSmem, stream>>>(map, wins, key, k, ncols, bits,
+                                                               desc, words);
   return cudaGetLastError();
 }
 
-// the builds: keypoints a tile, columns a block, rows of k a stage, stages
-#define PISLAM_DENSE_BUILDS(X) \
-  X(1, 16, 128, 128, 4)        \
-  X(2, 16, 256, 128, 4)        \
-  X(4, 32, 128, 128, 4)        \
-  X(5, 32, 256, 128, 4)        \
-  X(7, 64, 128, 128, 4)        \
-  X(8, 64, 256, 128, 4)        \
-  X(10, 16, 128, 256, 3)       \
-  X(12, 32, 128, 256, 3)       \
-  X(13, 64, 128, 256, 3)
-
-cudaError_t product(int variant, const int8_t* wins, const uint8_t* key, int k,
-                    const int8_t* gm, int gcols, int ncols, uint8_t* bits, uint32_t* desc,
-                    int words, cudaStream_t stream) {
-#define PISLAM_LAUNCH(i, T, C, KC, S)                                                     \
-  if (variant == i)                                                                       \
-    return launch_product<T, C, KC, S>(wins, key, k, gm, gcols, ncols, bits, desc, words, \
-                                       stream);
-  PISLAM_DENSE_BUILDS(PISLAM_LAUNCH)
-#undef PISLAM_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-// the design this file replaces, kept for the sweep's old-against-new turns:
-// one block of 256 threads per keypoint, thread j forming the dot with
-// column 256 a + j as a serial loop over the slab
-__global__ void __launch_bounds__(256)
-orb_select_dense_old_kernel(const int8_t* __restrict__ flat,
-                            const int8_t* __restrict__ gm, int gcols,
-                            int32_t* __restrict__ angles,
-                            uint8_t* __restrict__ bits) {
-  __shared__ int8_t s_win[1024];
-  __shared__ int32_t s_m10[8], s_m01[8];
-  __shared__ int s_bin;
-  const int kp = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int32_t word = reinterpret_cast<const int32_t*>(flat)[(size_t)kp * 256 + t];
-  reinterpret_cast<int32_t*>(s_win)[t] = word;
-  int m10 = 0, m01 = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int v = (int8_t)(word >> (8 * b));
-    const int8_t* row = gm + (size_t)(4 * t + b) * gcols + kMomentCol;
-    m10 += v * row[0];
-    m01 += v * row[1];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    m10 += __shfl_down_sync(kFullWarp, m10, off);
-    m01 += __shfl_down_sync(kFullWarp, m01, off);
-  }
-  if (lane == 0) {
-    s_m10[warp] = m10;
-    s_m01[warp] = m01;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int x = 0, y = 0;
-    for (int i = 0; i < 8; ++i) {
-      x += s_m10[i];
-      y += s_m01[i];
-    }
-    const int bin = atan2_bin(x, y);
-    s_bin = bin;
-    angles[kp] = bin;
-  }
-  __syncthreads();
-  const int8_t* col = gm + s_bin * 256 + t;
-  int dot = 0;
-#pragma unroll 8
-  for (int r = 0; r < 1024; ++r) dot += (int)s_win[r] * (int)col[(size_t)r * gcols];
-  bits[(size_t)kp * 256 + t] = dot > 0;
-}
-
-constexpr int kOldVariant = 9;
-
 }  // namespace
-
-PISLAM_API int pislam_dense_trace(unsigned long long* buf, cudaStream_t stream) {
-  return (int)cudaMemcpyToSymbolAsync(g_trace, &buf, sizeof(buf), 0, cudaMemcpyHostToDevice,
-                                      stream);
-}
 
 // gm: 16-byte aligned; key: (k,) and wins: (k, 1024) scratch bytes
 PISLAM_API int pislam_orb_select_dense(const int8_t* flat, int k, const int8_t* gm, int gcols,
                                        int32_t* angles, uint8_t* bits, uint8_t* key,
-                                       int8_t* wins, int variant, cudaStream_t stream) {
+                                       int8_t* wins, cudaStream_t stream) {
   if (k <= 0) return (int)cudaGetLastError();
-  if (variant == kOldVariant) {
-    orb_select_dense_old_kernel<<<k, 256, 0, stream>>>(flat, gm, gcols, angles, bits);
-    return (int)cudaGetLastError();
-  }
   dense_bins_kernel<<<(k + kPrologueWarps - 1) / kPrologueWarps, kPrologueThreads, 0, stream>>>(
       flat, k, gm, gcols, angles, key, reinterpret_cast<uint32_t*>(wins));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)product(variant, wins, key, k, gm, gcols, 256, bits, nullptr, 0, stream);
+  return (int)product(wins, key, k, gm, gcols, 256, bits, nullptr, 0, stream);
 }
 
 // the same scratch as pislam_orb_select_dense
 PISLAM_API int pislam_orb_describe_dense(const uint8_t* img, int h, int w, const int64_t* codes,
                                          const uint8_t* valid, int k, const int8_t* gm,
                                          int gcols, int words, uint8_t* angles, int32_t* desc,
-                                         uint8_t* key, int8_t* wins, int variant,
-                                         cudaStream_t stream) {
+                                         uint8_t* key, int8_t* wins, cudaStream_t stream) {
   if (k <= 0) return (int)cudaGetLastError();
   describe_dense_gather_kernel<<<(k + kPrologueWarps - 1) / kPrologueWarps, kPrologueThreads,
                                  0, stream>>>(
@@ -681,6 +581,6 @@ PISLAM_API int pislam_orb_describe_dense(const uint8_t* img, int h, int w, const
       reinterpret_cast<uint32_t*>(desc), key, reinterpret_cast<uint32_t*>(wins));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)product(variant, wins, key, k, gm, gcols, 32 * words, nullptr,
+  return (int)product(wins, key, k, gm, gcols, 32 * words, nullptr,
                       reinterpret_cast<uint32_t*>(desc), words, stream);
 }

@@ -44,15 +44,13 @@ SIGNATURES = {
     "pislam_match_reduce": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                             _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "pislam_reduce_codes": (_P, _I, _I, _P, _P),
-    "pislam_orb_select_dense": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P),
-    "pislam_orb_describe_dense": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
-                                  _P),
+    "pislam_orb_select_dense": (_P, _I, _P, _I, _P, _P, _P, _P, _P),
+    "pislam_orb_describe_dense": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "pislam_realign_windows": (_P, _P, _P, _I, _P, _P),
     "pislam_pack_row_strips": (_P, _I, _I, _P, _P),
     "pislam_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
     "pislam_device_limits": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     "pislam_empty": (_P,),
-    "pislam_dense_trace": (_P, _P),
 }
 
 

@@ -609,15 +609,8 @@ def atan2_bins(m10, m01):
 GM_COLS = 30 * 256 + 128      # 30 slabs of 256 bits + one tile of moment columns
 MOMENT_COL = 30 * 256
 N_BINS = 30
-# the product kernel's builds, (keypoints a tile, slab columns a block, rows
-# of k a stage), by the index the C entry points take; DENSE_BUILD is the one
-# the path runs
-DENSE_BUILDS = {1: (16, 128, 128), 2: (16, 256, 128), 4: (32, 128, 128), 5: (32, 256, 128),
-                7: (64, 128, 128), 8: (64, 256, 128), 10: (16, 128, 256), 12: (32, 128, 256),
-                13: (64, 128, 256)}
-DENSE_BUILD = 4
-# the design the product replaced (one block per keypoint), for the sweep
-DENSE_OLD_BUILD = 9
+# keypoints a tile of the product kernel (csrc/orb_select_dense.cu kTile)
+DENSE_TILE = 64
 
 
 def orb_select_bits_plain(flat, gm):
@@ -637,7 +630,7 @@ def orb_select_bits_plain(flat, gm):
     return a.to(torch.int32), bits.to(torch.uint8)
 
 
-def dense_tiles(keys, tile: int):
+def dense_tiles(keys, tile: int = DENSE_TILE):
     """The product kernel's rule for which keypoints a block takes, in plain
     torch: (K,) keys (a bin in [0, 30), or anything else for a keypoint no
     block takes) -> (slots, tile) int64 member indices, -1 where empty, and
@@ -679,7 +672,7 @@ def _check_dense(gm, name: str):
 
 @hopper_kernel(orb_select_bits_plain, "pislam_tpu_torch/csrc/orb_select_dense.cu",
                "pislam_tpu/ops/pallas_kernels.py:465")
-def orb_select_bits(flat, gm, *, build: int = DENSE_BUILD):
+def orb_select_bits(flat, gm):
     dev = flat.device
     _check(flat, "flat", torch.int8, 2, dev)
     _check(gm, "gm", torch.int8, 2, dev)
@@ -693,7 +686,7 @@ def orb_select_bits(flat, gm, *, build: int = DENSE_BUILD):
     bits = torch.empty((k, 256), dtype=torch.uint8, device=dev)
     scratch = _dense_scratch(dev, k)
     _call("pislam_orb_select_dense", dev, flat.data_ptr(), k, gm.data_ptr(), GM_COLS,
-          angles.data_ptr(), bits.data_ptr(), *(t.data_ptr() for t in scratch), build)
+          angles.data_ptr(), bits.data_ptr(), *(t.data_ptr() for t in scratch))
     return angles, bits
 
 
@@ -715,7 +708,7 @@ def orb_describe_dense_plain(img, codes, valid, gm, words: int):
 
 @hopper_kernel(orb_describe_dense_plain, "pislam_tpu_torch/csrc/orb_select_dense.cu",
                "pislam_tpu/ops/pallas_kernels.py:195,465")
-def orb_describe_dense(img, codes, valid, gm, words: int, *, build: int = DENSE_BUILD):
+def orb_describe_dense(img, codes, valid, gm, words: int):
     h, w = img.shape
     if h < 32 or w < 32:
         raise ValueError(f"image {h}x{w} is smaller than one 32x32 window")
@@ -735,7 +728,7 @@ def orb_describe_dense(img, codes, valid, gm, words: int, *, build: int = DENSE_
     scratch = _dense_scratch(dev, k)
     _call("pislam_orb_describe_dense", dev, img.data_ptr(), h, w, codes.data_ptr(),
           valid.view(torch.uint8).data_ptr(), k, gm.data_ptr(), GM_COLS, words,
-          angles.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in scratch), build)
+          angles.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in scratch))
     return angles, desc
 
 

@@ -352,16 +352,15 @@ def test_k6(dev, shape):
                                        (300, "random", False), (1, "brief", False),
                                        (8192, "brief", False), (2048, "brief", True),
                                        (8192, "random", True)])
-@pytest.mark.parametrize("build", list(kernels.DENSE_BUILDS))
-def test_k4d(dev, k, gm, skew, build):
+def test_k4d(dev, k, gm, skew):
     """K4d on random windows (each bin ~k/30 keypoints) and, skewed, one
-    window repeated (every keypoint in one bin), under every build."""
+    window repeated (every keypoint in one bin)."""
     rng = np.random.default_rng(k)
     flat = rng.integers(-128, 128, (1 if skew else k, 1024)).astype(np.int8)
     flat = t(np.repeat(flat, k, 0) if skew else flat).to(dev)
     g = (brief.dense_weights(dev) if gm == "brief" else
          t(rng.integers(-128, 128, (1024, kernels.GM_COLS)).astype(np.int8)).to(dev))
-    got = kernels.orb_select_bits(flat, g, build=build)
+    got = kernels.orb_select_bits(flat, g)
     _same(got, kernels.orb_select_bits_plain(flat, g))
     if skew:
         assert torch.unique(got[0]).numel() == 1
@@ -389,8 +388,7 @@ def test_orb_describe_dense(dev, shape, k, words):
 
 
 @pytest.mark.parametrize("case", ["all invalid", "one bin", "random gm"])
-@pytest.mark.parametrize("build", list(kernels.DENSE_BUILDS))
-def test_orb_describe_dense_cases(dev, case, build):
+def test_orb_describe_dense_cases(dev, case):
     img, codes, valid = _describe_case((800, 384), 2048, 5, dev)
     gm = brief.dense_weights(dev)
     if case == "all invalid":
@@ -401,7 +399,7 @@ def test_orb_describe_dense_cases(dev, case, build):
         rng = np.random.default_rng(6)
         gm = t(rng.integers(-128, 128, (1024, kernels.GM_COLS)).astype(np.int8)).to(dev)
     for words in (8, 3):
-        got = kernels.orb_describe_dense(img, codes, valid, gm, words, build=build)
+        got = kernels.orb_describe_dense(img, codes, valid, gm, words)
         _same(got, kernels.orb_describe_dense_plain(img, codes, valid, gm, words))
         if case == "all invalid":
             assert not got[0].any() and not got[1].any()
