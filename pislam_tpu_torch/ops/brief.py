@@ -126,26 +126,22 @@ def dense_weights(device) -> torch.Tensor:
     return _dense_weights(str(torch.device(device)))
 
 
-def orb_compute_packed(flat, words: int = 8, variant: str = "dense",
-                       tables: OrbTables | None = None, ops=None):
+def orb_compute_packed(flat, words: int = 8, variant: str = "dense"):
     """Fused orientation + descriptors from packed windows, as the JAX
     package computes them per variant (pislam_tpu/ops/brief.py:141-145):
     "sorted" through K4 (``orb_select``, 256 direct compares), "dense"
     through K4d (``orb_select_bits`` with the ``_gm_packed`` weights). The
-    two give identical bits (config.py:112-121).
+    two give identical bits (config.py:112-121). The frontend runs neither:
+    it describes from codes (``orb_describe``, ``orb_describe_dense``).
 
     (K, 1024) int8 windows -> ((K,) uint8 angle bins, (K, words) int32).
-    ``tables`` default to ones built on the windows' device; ``ops`` is a
-    ``kernels.KernelSet`` (default ``kernels.HOPPER``).
     """
     if variant not in ("dense", "sorted"):
         raise ValueError(f"unknown brief variant {variant!r}")
-    ops = ops or kernels.HOPPER
     if variant == "dense":
-        angles, bits = ops.orb_select_bits(flat, dense_weights(flat.device))
+        angles, bits = kernels.orb_select_bits(flat, dense_weights(flat.device))
         return angles.to(torch.uint8), _pack_bits_u8(bits, words)
-    tables = tables if tables is not None else OrbTables.build(flat.device)
-    return ops.orb_select(flat, tables.idx0, tables.idx1, tables.mom_w, words)
+    return kernels.orb_select(flat, *OrbTables.build(flat.device), words)
 
 
 def _orb_compute_packed_dense(flat, words: int = 8):

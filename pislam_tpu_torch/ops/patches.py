@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import kernels
 
 RADIUS = 15
 PATCH = 2 * RADIUS + 1  # 31
@@ -31,14 +30,3 @@ def remap_weights_packed(w961):
     out = np.zeros((1024,) + w961.shape[1:], w961.dtype)
     out[packed_index_map().reshape(-1)] = w961
     return out
-
-
-def gather_patches_packed_s8(img, xs, ys, valid, gather=None):
-    """(K, 1024) int8 packed windows, offset by -128: the K3 kernel on CUDA.
-
-    img (H, W) uint8; xs, ys (K,) int32; valid (K,) bool. Invalid keypoints
-    read a safe interior window; callers mask their outputs by ``valid``.
-    ``gather`` replaces ``kernels.gather_windows_packed``.
-    """
-    gather = gather or kernels.gather_windows_packed
-    return gather(img, xs, ys, valid)
