@@ -37,9 +37,9 @@
 // 2. The product, on a fixed grid of (ceil(K / kTile) + 29) keypoint tiles x
 //    the slab's column chunks of kCols: enough for any histogram of 30 bins,
 //    from all K in one bin to 30 bins of one. Each block counts the bins of
-//    all K keys (warp match plus shared atomics), finds its (bin, tile) by
-//    prefix over the 30 tile counts, exits if it has none, then ranks the
-//    bin's members in index order by a block scan. No host sync, no atomics
+//    all K keys (shared atomics), finds its (bin, tile) by prefix over the
+//    30 tile counts, exits if it has none, then ranks the bin's members in
+//    index order by a block scan. No host sync, no atomics
 //    in device memory, and nothing depends on the order in which blocks run:
 //    the result repeats bit for bit. The block streams its columns of the
 //    bin's slab by TMA (each stage's boxes on an mbarrier; the bin alone
@@ -328,8 +328,7 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
 #pragma unroll
     for (int i = 0; i < kKeyRegs; ++i) {
       if (base + i >= per) break;
-      const unsigned same = __match_any_sync(kFullWarp, kv[i]);
-      if (kv[i] < kBins && lane == __ffs(same) - 1) atomicAdd(&s_hist[kv[i]], __popc(same));
+      if (kv[i] < kBins) atomicAdd(&s_hist[kv[i]], 1);
     }
   }
   __syncthreads();
@@ -426,7 +425,8 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
       const uint8_t* sg = smem + (c % kStages) * P::kStageBytes + box;
       const uint8_t* sw = smem + (c % kStages) * P::kStageBytes + P::kGmBytes;
 #pragma unroll
-      for (int st = ks; st < kRows / 32; st += KS) {
+      for (int j = 0; j < kRows / 32 / KS; ++j) {
+        const int st = ks + KS * j;   // a fixed trip count: the steps' loads overlap
         // rows 32 st + {2t, 2t+1, 8+2t, 9+2t | 16+2t, 17+2t, 24+2t, 25+2t} of
         // this thread's 4 columns; a 128-byte row r keeps its 16-byte chunk j
         // at j ^ (r & 7), and r & 7 = 2t + (i & 1) puts the quad's rows in
