@@ -39,12 +39,12 @@
 //    from all K in one bin to 30 bins of one. Each block counts the bins of
 //    all K keys (shared atomics), finds its (bin, tile) by prefix over the
 //    30 tile counts, exits if it has none, then ranks the bin's members in
-//    index order by a block scan. No host sync, no atomics
-//    in device memory, and nothing depends on the order in which blocks run:
-//    the result repeats bit for bit. The block streams its columns of the
-//    bin's slab by TMA (each stage's boxes on an mbarrier; the bin alone
-//    decides them, so they start before the member search) and its members'
-//    windows by cp.async through a ring of shared memory, and runs mma.sync
+//    index order by a block scan. No host sync, no atomics in device
+//    memory, and nothing depends on the order in which blocks run: the
+//    result repeats bit for bit. The block loads its 128 columns of the bin's
+//    slab, all 1024 rows, by TMA (on one mbarrier; the bin alone decides
+//    them, so they start before the member search) and its members' whole
+//    windows by cp.async into shared memory, then runs mma.sync
 //    m16n8k32 s8 x s8 -> s32 with the slab's columns as M (two 16-row tiles a
 //    warp, 32 columns: one descriptor word) and the keypoints as N (8 a
 //    tile), skipping n-tiles past the tile's members. Both operands must be
@@ -59,7 +59,7 @@
 //    _pack_bits_u8's order (bit i of word i / 32 at position i % 32).
 // What remains is latency, not bytes or operations (PERF.md): the launch of
 // each kernel, the prologue's round trips, and the product block's chain of
-// key loads, histogram, member ranking and stage waits.
+// key loads, histogram, member ranking, loads and fragment building.
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is found at run time
 
 #include "common.cuh"
@@ -267,30 +267,26 @@ describe_dense_gather_kernel(const uint8_t* __restrict__ img, int h, int w,
   }
 }
 
-// The product's block: kTile keypoints x kCols slab columns, with k streamed
-// through a ring of kStages stages of kRows rows, each stage kCols / 128 TMA
-// boxes of kRows x 128 slab bytes (128-byte swizzle, 1024-byte aligned), then
-// kTile window rows. Of the builds swept (keypoints 16, 32, 64; columns 128,
-// 256; rows 128 in 4 stages or 256 in 3), this was the fastest at VGA's 2048
-// keypoints and, of those within 10 % of it there, the fastest at eval's 512
-// (PERF.md).
-constexpr int kTile = 64, kCols = 128, kRows = 256, kStages = 3;
+// The product's block: kTile keypoints x kCols slab columns over all 1024
+// rows of k at once: the slab's columns as kCols / 128 x 4 TMA boxes of 256
+// rows x 128 bytes (128-byte swizzle; the boxes of a column half lie one
+// after another, so its rows are contiguous), then the members' whole
+// windows. Of the builds swept (keypoints 16, 32, 64; columns 128, 256;
+// k in stages of 128, 256 or 512 rows or all at once), this was the fastest
+// at VGA's 2048 keypoints and at eval's 512 (PERF.md).
+constexpr int kTile = 64, kCols = 128, kBoxRows = 256;
 struct Plan {
-  static constexpr int G = kCols / 32;             // 32-column groups: warps along M
-  static constexpr int KS = kWarps / G;        // warps splitting k
-  static constexpr int kChunks = 1024 / kRows;
-  static constexpr int kBox = kRows * 128;        // bytes of one TMA box
-  static constexpr int kWinStride = kRows + 32;   // bytes of a staged window row
-  static constexpr int kGmBytes = (kCols / 128) * kBox;
-  static constexpr int kWinBytes = (kTile * kWinStride + 1023) / 1024 * 1024;
-  static constexpr int kStageBytes = kGmBytes + kWinBytes;
-  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int G = kCols / 32;           // 32-column groups: warps along M
+  static constexpr int KS = kWarps / G;          // warps splitting k
+  static constexpr int kHalf = 1024 * 128;       // bytes of 128 slab columns
+  static constexpr int kSlabBytes = (kCols / 128) * kHalf;
+  static constexpr int kWinStride = 1024 + 32;   // bytes of a staged window
+  static constexpr int kWinBytes = kTile * kWinStride;
   static constexpr int kRedBytes = (KS - 1) * G * kTile * 32 * 4;
-  static constexpr int kSmem = (kRingBytes > kRedBytes ? kRingBytes : kRedBytes) + 1024;
-  static_assert(kCols % 128 == 0 && G * KS == kWarps && (kRows / 32) % KS == 0,
-                "warps must tile M and k");
-  static_assert(kChunks >= kStages && kRows <= 256, "the ring holds at most all of k");
-  static_assert(kSmem <= 227 * 1024, "the ring must fit one block's shared memory");
+  static constexpr int kInBytes = kSlabBytes + kWinBytes;
+  static constexpr int kSmem = (kInBytes > kRedBytes ? kInBytes : kRedBytes) + 1024;
+  static_assert(kCols % 128 == 0 && G * KS == kWarps && 32 % KS == 0, "warps must tile M and k");
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
 };
 
 // bits != nullptr: orb_select_bits' (K, 256) bytes for every keypoint;
@@ -303,16 +299,16 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
   using P = Plan;
   constexpr int G = P::G, KS = P::KS;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t s_bar[kStages];
+  __shared__ __align__(8) uint64_t s_bar;
   __shared__ int s_hist[32];
   __shared__ int s_members[kTile];
   __shared__ int s_warp[kWarps];
-  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  // the 128-byte swizzle repeats every 1024 bytes: align the boxes to it
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int col0 = blockIdx.y * kCols;
 
-  if (tid < kStages) mbar_init(&s_bar[tid], 1);
+  if (tid == 0) mbar_init(&s_bar, 1);
   if (tid < 32) s_hist[tid] = 0;
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
@@ -347,30 +343,16 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
   const int first = tile * kTile;
   const int count = min(kTile, s_hist[bin] - first);    // members: n-tiles past them idle
 
-  // one thread loads the slab's boxes, each stage's on its own barrier
-  auto issue_slab = [&](int chunk) {
-    uint8_t* dst = smem + (chunk % kStages) * P::kStageBytes;
-    uint64_t* bar = &s_bar[chunk % kStages];
-    mbar_arrive_tx(bar, P::kGmBytes);
+  // the slab's columns depend on the bin alone: one thread starts them now
+  if (tid == 0) {
+    mbar_arrive_tx(&s_bar, P::kSlabBytes);
 #pragma unroll
     for (int h = 0; h < kCols / 128; ++h)
-      tma_load_2d(dst + h * P::kBox, &gm_map, 256 * bin + col0 + 128 * h, chunk * kRows, bar);
-  };
-  // the members' windows by cp.async, one commit group a stage
-  auto issue_windows = [&](int chunk) {
-    uint8_t* dst = smem + (chunk % kStages) * P::kStageBytes + P::kGmBytes;
-    constexpr int kPieces = kTile * kRows / 16;
 #pragma unroll
-    for (int p = tid; p < kPieces; p += kThreads) {
-      const int n = p / (kRows / 16), c16 = p % (kRows / 16);
-      const int m = s_members[n];
-      if (m >= 0) cp_async16(dst + n * P::kWinStride + 16 * c16,
-                             wins + (size_t)m * 1024 + chunk * kRows + 16 * c16);
-    }
-  };
-  // the slab's stages depend on the bin alone: start them now
-  if (tid == 0)
-    for (int c = 0; c < kStages; ++c) issue_slab(c);
+      for (int v = 0; v < 1024 / kBoxRows; ++v)
+        tma_load_2d(smem + h * P::kHalf + v * kBoxRows * 128, &gm_map,
+                    256 * bin + col0 + 128 * h, v * kBoxRows, &s_bar);
+  }
 
   // the members: the bin's keys of rank first..first+kTile-1, in index order
   int mine = 0;
@@ -399,16 +381,23 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
     }
   }
   __syncthreads();
-  for (int c = 0; c < kStages; ++c) {
-    issue_windows(c);
-    cp_async_commit();
+
+  // the members' windows by cp.async
+  uint8_t* sw = smem + P::kSlabBytes;
+#pragma unroll
+  for (int p = tid; p < kTile * 64; p += kThreads) {
+    const int n = p >> 6, c16 = p & 63;
+    const int m = s_members[n];
+    if (m >= 0) cp_async16(sw + n * P::kWinStride + 16 * c16, wins + (size_t)m * 1024 + 16 * c16);
   }
+  cp_async_commit();
 
   const int cg = warp % G, ks = warp / G;
   const int g = lane >> 2, t = lane & 3;
   const bool active = col0 + 32 * cg < ncols;
-  // this thread's 4 slab columns: 32-byte group cg % 4 of box cg / 4
-  const int box = (cg >> 2) * P::kBox, grp = 2 * (cg & 3) + (g >> 2);
+  // this thread's 4 slab columns: 32-byte group cg % 4 of column half cg / 4
+  const uint8_t* sg = smem + (cg >> 2) * P::kHalf;
+  const int grp = 2 * (cg & 3) + (g >> 2);
   int acc[kTile / 8][2][4];
 #pragma unroll
   for (int nt = 0; nt < kTile / 8; ++nt)
@@ -417,51 +406,42 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[nt][mt][r] = 0;
 
-  for (int c = 0; c < P::kChunks; ++c) {
-    cp_async_wait<kStages - 1>();       // this stage's windows (every later stage's group pends)
-    __syncthreads();
-    if (active) {
-      mbar_wait(&s_bar[c % kStages], (c / kStages) & 1);
-      const uint8_t* sg = smem + (c % kStages) * P::kStageBytes + box;
-      const uint8_t* sw = smem + (c % kStages) * P::kStageBytes + P::kGmBytes;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (active) {
+    mbar_wait(&s_bar, 0);
 #pragma unroll
-      for (int j = 0; j < kRows / 32 / KS; ++j) {
-        const int st = ks + KS * j;   // a fixed trip count: the steps' loads overlap
-        // rows 32 st + {2t, 2t+1, 8+2t, 9+2t | 16+2t, 17+2t, 24+2t, 25+2t} of
-        // this thread's 4 columns; a 128-byte row r keeps its 16-byte chunk j
-        // at j ^ (r & 7), and r & 7 = 2t + (i & 1) puts the quad's rows in
-        // distinct banks
-        uint32_t w8[8], v[8];
+    for (int j = 0; j < 32 / KS; ++j) {
+      const int st = ks + KS * j;     // a fixed trip count: the steps' loads overlap
+      // rows 32 st + {2t, 2t+1, 8+2t, 9+2t | 16+2t, 17+2t, 24+2t, 25+2t} of
+      // this thread's 4 columns; a 128-byte row r keeps its 16-byte chunk q
+      // at q ^ (r & 7), and r & 7 = 2t + (i & 1) puts the quad's rows in
+      // distinct banks
+      uint32_t w8[8], v[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = 32 * st + 2 * t + (i & 1) + 8 * (i >> 1);
-          w8[i] = *reinterpret_cast<const uint32_t*>(sg + r * 128 + ((grp ^ (r & 7)) << 4) +
-                                                     4 * (g & 3));
-        }
-        transpose4(w8, v);          // v[c]: column 4g + c, logical k 4t .. 4t + 3
-        transpose4(w8 + 4, v + 4);  // v[4 + c]: logical k 16 + 4t .. 16 + 4t + 3
-        const uint32_t a0[4] = {v[0], v[1], v[4], v[5]};   // columns 4g, 4g + 1
-        const uint32_t a1[4] = {v[2], v[3], v[6], v[7]};   // columns 4g + 2, 4g + 3
+      for (int i = 0; i < 8; ++i) {
+        const int r = 32 * st + 2 * t + (i & 1) + 8 * (i >> 1);
+        w8[i] = *reinterpret_cast<const uint32_t*>(sg + r * 128 + ((grp ^ (r & 7)) << 4) +
+                                                   4 * (g & 3));
+      }
+      transpose4(w8, v);          // v[c]: column 4g + c, logical k 4t .. 4t + 3
+      transpose4(w8 + 4, v + 4);  // v[4 + c]: logical k 16 + 4t .. 16 + 4t + 3
+      const uint32_t a0[4] = {v[0], v[1], v[4], v[5]};   // columns 4g, 4g + 1
+      const uint32_t a1[4] = {v[2], v[3], v[6], v[7]};   // columns 4g + 2, 4g + 3
 #pragma unroll
-        for (int nt = 0; nt < kTile / 8; ++nt) {
-          if (8 * nt >= count) break;
-          const uint2 b = *reinterpret_cast<const uint2*>(
-              sw + (nt * 8 + g) * P::kWinStride + 32 * st + 8 * t);
-          mma_s8(acc[nt][0], a0, b);
-          mma_s8(acc[nt][1], a1, b);
-        }
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+        if (8 * nt >= count) break;
+        const uint2 b = *reinterpret_cast<const uint2*>(
+            sw + (nt * 8 + g) * P::kWinStride + 32 * st + 8 * t);
+        mma_s8(acc[nt][0], a0, b);
+        mma_s8(acc[nt][1], a1, b);
       }
     }
-    __syncthreads();              // every warp is done with this stage: refill it
-    if (c + kStages < P::kChunks) {
-      if (tid == 0) issue_slab(c + kStages);
-      issue_windows(c + kStages);
-    }
-    cp_async_commit();
   }
 
   if constexpr (KS > 1) {
-    int32_t* red = reinterpret_cast<int32_t*>(smem);   // the ring is free
+    __syncthreads();              // the inputs are read: the space holds the sums
+    int32_t* red = reinterpret_cast<int32_t*>(smem);
     if (ks > 0 && active) {
 #pragma unroll
       for (int nt = 0; nt < kTile / 8; ++nt)
@@ -469,7 +449,8 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            red[((((ks - 1) * G + cg) * kTile) + (nt * 2 + mt) * 4 + r) * 32 + lane] = acc[nt][mt][r];
+            red[((((ks - 1) * G + cg) * kTile) + (nt * 2 + mt) * 4 + r) * 32 + lane] =
+                acc[nt][mt][r];
     }
     __syncthreads();
     if (ks > 0 || !active) return;
@@ -480,7 +461,8 @@ dense_product_kernel(const __grid_constant__ CUtensorMap gm_map,
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            acc[nt][mt][r] += red[((((s - 1) * G + cg) * kTile) + (nt * 2 + mt) * 4 + r) * 32 + lane];
+            acc[nt][mt][r] +=
+                red[((((s - 1) * G + cg) * kTile) + (nt * 2 + mt) * 4 + r) * 32 + lane];
     }
   } else if (!active) {
     return;
@@ -547,7 +529,7 @@ cudaError_t product(const int8_t* wins, const uint8_t* key, int k, const int8_t*
   cudaError_t err = allow_dynamic_smem(dense_product_kernel, Plan::kSmem, have);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  err = gm_tensor_map(&map, gm, gcols, kRows);
+  err = gm_tensor_map(&map, gm, gcols, kBoxRows);
   if (err != cudaSuccess) return err;
   const dim3 grid((k + kTile - 1) / kTile + kBins - 1, (ncols + kCols - 1) / kCols);
   dense_product_kernel<<<grid, kThreads, Plan::kSmem, stream>>>(map, wins, key, k, ncols, bits,

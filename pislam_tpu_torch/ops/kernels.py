@@ -76,11 +76,12 @@ K4d orb_select_bits      csrc/orb_select_dense.cu
     (ceil(K / 64) + 29) tiles of 64 keypoints x 2 chunks of 128 columns,
     each block finding its (bin, tile) from the bins' histogram and its
     members by a block scan (no host sync, no atomics in device memory),
-    streaming its slab columns by TMA and the members' windows by cp.async
-    through a 3-stage ring of 256 rows of k, the slab transposed to K-major
+    loading its slab columns (all 1024 rows of k) by TMA and the members'
+    windows by cp.async into shared memory, the slab transposed to K-major
     fragments by ``__byte_perm``. Each slab is read about once per keypoint
     tile instead of once per keypoint. What is left is latency (launches,
-    the blocks' key scans and stage waits), not bytes or operations.
+    the blocks' key scans, loads and fragment building), not bytes or
+    operations.
 K3+K4d orb_describe_dense csrc/orb_select_dense.cu
     The dense-BRIEF path's counterpart of ``orb_describe``: replaces
     ``gather_windows_packed`` (pallas_kernels.py:195) then
