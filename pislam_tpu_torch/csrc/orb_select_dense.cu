@@ -273,7 +273,8 @@ describe_dense_gather_kernel(const uint8_t* __restrict__ img, int h, int w,
 // after another, so its rows are contiguous), then the members' whole
 // windows. Of the builds swept (keypoints 16, 32, 64; columns 128, 256;
 // k in stages of 128, 256 or 512 rows or all at once), this was the fastest
-// at VGA's 2048 keypoints and at eval's 512 (PERF.md).
+// at VGA's 2048 keypoints and, of those within 10 % of it there, the
+// fastest at eval's 512 (PERF.md).
 constexpr int kTile = 64, kCols = 128, kBoxRows = 256;
 struct Plan {
   static constexpr int G = kCols / 32;           // 32-column groups: warps along M
