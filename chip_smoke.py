@@ -30,7 +30,10 @@ prints no result line):
    random gm; orb_describe_dense on orb_describe's cases, at 2048 and 8192,
    one code repeated at 2048 and 8192 and with a random gm (also against
    orb_describe); K3c on 2048 keypoints' strip
-   rows (also against K3's bytes), K3a on each pyramid; K5 (ungated and
+   rows (also against K3's bytes), K3a on each pyramid (also against its
+   library copy, chip_smoke.strips_by_copy); K6 and K3a on their edge cases
+   (k6_edge_cases, k3a_edge_cases: odd and ragged shapes, bases offset by 1,
+   4 and 8 bytes, all zero, score 255 at the 4095 coordinate limit); K5 (ungated and
    gated) bit-exact at (512, 512) from eval features, (2048, 2048) from VGA
    features, (2048, 16384) tiled as tools/ab_match.py tiles it, and gated
    with radius 0.06 at (512, 8192), the map-tracking shape, and (512,
@@ -541,6 +544,7 @@ def kernel_phase(dev, pyramids, cfgs):
         strips = kernels.pack_row_strips(pyr)
         errs["pack_row_strips"] = max(errs["pack_row_strips"], require_equal(
             f"K3a {label}", strips, kernels.pack_row_strips_plain(pyr)))
+        require_equal(f"K3a {label} library copy", strips_by_copy(pyr), strips)
 
         # times at the main path's shapes (the keypoints alone, no extras)
         args3 = (pyr, xs, ys, valid)
@@ -551,7 +555,7 @@ def kernel_phase(dev, pyramids, cfgs):
         rows[label] = {
             "fused_frontend_codes": (args1, None, bound_ms(
                 2 * n_px + grid.numel() * 4, (K1_OPS_PER_PIXEL * n_px, SCALAR_OPS_S))),
-            "topk_keys": ((keys, k), lambda: torch.topk(keys, k),
+            "topk_keys": ((keys, k), lambda keys=keys, k=k: torch.topk(keys, k),
                           bound_ms(keys.numel() * 4 + k * 4, (4 * keys.numel(), SCALAR_OPS_S))),
             "gather_windows_packed": (args3, None, bound_ms(
                 n_px + k * (4 + 4 + 1) + k * 1024)),
@@ -572,11 +576,21 @@ def kernel_phase(dev, pyramids, cfgs):
             "realign_windows": (args3c, None, bound_ms(
                 k * (9 * 32 * 4 + 8 + 1024))),
             # the image in, every strip's words out
-            "pack_row_strips": ((pyr,), None, bound_ms(
+            "pack_row_strips": ((pyr,), lambda pyr=pyr: strips_by_copy(pyr), bound_ms(
                 n_px + strips.numel() * 4)),
             "orb_describe": ((pyr, codes, valid, *tables, fc.words), None,
                              describe_bound(pyr, codes, valid, fd.angles, fc.words)),
         }
+
+    k6_cases, k3a_cases = k6_edge_cases(dev), k3a_edge_cases(dev)
+    for name, scored in k6_cases.items():
+        errs["reduce_codes_4x"] = max(errs["reduce_codes_4x"], require_equal(
+            f"K6 {name}", kernels.reduce_codes_4x(scored), kernels.reduce_codes_4x_plain(scored)))
+    for name, img in k3a_cases.items():
+        strips = kernels.pack_row_strips(img)
+        errs["pack_row_strips"] = max(errs["pack_row_strips"], require_equal(
+            f"K3a {name}", strips, kernels.pack_row_strips_plain(img)))
+        require_equal(f"K3a {name} library copy", strips_by_copy(img), strips)
 
     m10, m01 = (torch.as_tensor(m, device=dev) for m in orientation.sweep_moments())
     bins = kernels.atan2_bins(m10, m01)
@@ -592,8 +606,11 @@ def kernel_phase(dev, pyramids, cfgs):
           f"weights, also against K4, and a random gm), orb_describe_dense (orb_describe's "
           f"cases, 2048, 8192, one bin at 2048 and 8192, a random gm; also against "
           f"orb_describe), K3c (2048 "
-          f"keypoints, also against K3's bytes) and K3a bit-exact (tolerance 0) on VGA and "
-          f"eval shapes; atan2 sweep of {m10.numel()} moment pairs bit-exact")
+          f"keypoints, also against K3's bytes) and K3a (also against its library copy) "
+          f"bit-exact (tolerance 0) on VGA and eval shapes; K6 on {len(k6_cases)} "
+          f"and K3a on {len(k3a_cases)} edge cases (odd and ragged shapes, "
+          f"misaligned bases, ties at the coordinate limit) bit-exact; atan2 sweep of "
+          f"{m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
 
 
@@ -744,6 +761,59 @@ def dense_ab(dev, cfgs, results, card):
     empty_us, empty_n = device_us(lambda: kernels.empty_launch(dev))
     print(f"time empty kernel (the launch floor): {empty_us:.2f} us, {empty_n:g} device "
           f"kernels per call [{card}]")
+
+
+def strips_by_copy(img):
+    """K3a's function as one PyTorch call, its library yardstick (timed here,
+    never called by the port): the copy of a strided view of the image."""
+    h, w = img.shape
+    return torch.as_strided(img, (w // 128 - 1, h // 4, 256, 4),
+                            (128, 4 * w, 1, w)).contiguous().view(torch.int32).squeeze(-1)
+
+
+def at_offset(a: np.ndarray, offset: int, dev):
+    """An (H, W) uint8 array as a contiguous view on dev that starts `offset`
+    bytes into a fresh buffer (whose own start the allocator aligns)."""
+    buf = torch.zeros(a.size + 16, dtype=torch.uint8, device=dev)
+    view = buf[offset:offset + a.size].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+def k6_edge_cases(dev) -> dict:
+    """K6's edge grids, each a case of its vector or its scalar path: odd H,
+    odd W, W = 2, W % 16 in {2, 8, 14}, the base offset by 1, 4 and 8 bytes
+    (and by 0), all zero, and every pixel a survivor at score 255 (the 2x2
+    maxima decided by x, then y) up to the 4095 coordinate limit."""
+    rng = np.random.default_rng(13)
+
+    def survivors(h, w):
+        s = rng.integers(1, 256, (h, w), dtype=np.uint8)
+        s[rng.random((h, w)) < 0.6] = 0
+        return s
+
+    shapes = {"odd H": (61, 64), "odd W": (64, 61), "W=2": (63, 2), "W%16=2": (40, 130),
+              "W%16=8": (41, 136), "W%16=14": (40, 142)}
+    cases = {f"{name} {h}x{w}": torch.from_numpy(survivors(h, w)).to(dev)
+             for name, (h, w) in shapes.items()}
+    for off in (0, 1, 4, 8):
+        cases[f"base +{off} 64x256"] = at_offset(survivors(64, 256), off, dev)
+    cases["all zero 800x384"] = torch.zeros((800, 384), dtype=torch.uint8, device=dev)
+    for n in (4096, 4095):
+        cases[f"all 255 {n}x{n}"] = torch.full((n, n), 255, dtype=torch.uint8, device=dev)
+    return cases
+
+
+def k3a_edge_cases(dev) -> dict:
+    """K3a's edge images: W = 256 (one strip), 384 and 640, H = 4, and the
+    base offset by 1 and 8 bytes (the scalar path)."""
+    rng = np.random.default_rng(14)
+    cases = {f"{h}x{w}": torch.from_numpy(rng.integers(0, 256, (h, w), np.uint8)).to(dev)
+             for h, w in ((64, 256), (64, 384), (64, 640), (4, 384), (4, 256))}
+    for off in (1, 8):
+        cases[f"base +{off} 64x384"] = at_offset(
+            rng.integers(0, 256, (64, 384), np.uint8), off, dev)
+    return cases
 
 
 def unfused_scored(pyr, level_mask, fc):
@@ -3220,7 +3290,8 @@ def main():
             l_ms = time_ms(library) if library else None
             d_us, d_n = device_us(lambda: kern(*args))
             times[label][name] = (k_ms, p_ms, l_ms, b_ms, b_by)
-            lib_txt = f", library {l_ms:.4f} ms" if library else ""
+            lib_txt = (f", library {l_ms:.4f} ms (device {device_us(library)[0]:.2f} us)"
+                       if library else "")
             print(f"time kernel {name} at {label} shapes: {k_ms:.4f} ms (device "
                   f"{d_us:.2f} us, {d_n:g} device kernels per call), plain {p_ms:.4f} ms"
                   f"{lib_txt}, bound {b_ms * 1e3:.3f} us ({b_by}) [{card}]")

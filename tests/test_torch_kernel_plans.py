@@ -1,6 +1,7 @@
 """The pure-Python launch plans of K1 ``fused_frontend_codes``, K5
-``match_reduce`` and K2 ``topk_keys``, and the arithmetic and merge order
-that csrc/match_reduce.cu relies on, on the CPU (the kernels themselves run
+``match_reduce`` and K2 ``topk_keys``, the arithmetic and merge order
+that csrc/match_reduce.cu relies on, and the thread mappings of K6 and K3a,
+on the CPU (the kernels themselves run
 only on the card: test_torch_cuda.py).
 
 - ``frontend_plan``: its grid of tiles covers every pixel and every 2x2
@@ -22,6 +23,12 @@ only on the card: test_torch_cuda.py).
   gated-out pairs.
 - The distance identity (32 words - (+-1 dot)) >> 1 == Hamming, with the
   kernel's bit-to-byte expansion, for 1..8 words.
+- K6 ``reduce_codes_4x`` and K3a ``pack_row_strips`` modelled thread by
+  thread in numpy (the vector path where the base is aligned, else the
+  byte path; K6's 2x2 maximum of 8 codes per row pair, K3a's byte-permute
+  transpose and its one-or-two-strip stores) equal their plain versions
+  (tolerance 0) at the pyramids and the edge shapes and offsets, every
+  output written once.
 """
 
 import numpy as np
@@ -487,3 +494,195 @@ def test_match_reduce_chunked_equals_plain(k1, k2, words, gated, chunk):
     assert col[6] == 0                           # all-invalid column: row 0
     if not gated or k1 > 17:
         assert col[2] == col[9] == 3             # tied rows 3, 10, 17: the lowest
+
+
+# ---------------------------------------------------------------------------
+# K6 reduce_codes_4x and K3a pack_row_strips: each thread's work
+# ---------------------------------------------------------------------------
+
+# csrc/reduce_codes.cu's kCols and kThreads, csrc/pack_row_strips.cu's kTile
+# and kThreads: the kept builds
+K6_COLS, K6_THREADS = 16, 256
+K3A_TILE, K3A_THREADS = 16, 128
+
+
+def _in_buffer(a, offset):
+    """a's bytes at byte `offset` of a buffer whose own start is 16-byte
+    aligned (the allocator's), with bytes that are not the image's (nonzero)
+    around them: (buffer, offset)."""
+    return np.concatenate([np.full(offset, 0xA5, np.uint8), a.ravel(),
+                           np.full(16, 0xA5, np.uint8)]), offset
+
+
+def _words(rows):
+    """(n, b) bytes -> (n, b / 4) little-endian u32 words: what a vector load
+    of b bytes gives, and what the scalar path assembles byte by byte."""
+    return np.ascontiguousarray(rows).view("<u4").astype(np.uint32)
+
+
+def _encode(b, x, y):
+    b = b.astype(np.uint32)
+    return np.where(b != 0, (b << 24) | (np.uint32(x) << 12) | np.uint32(y), 0).astype(np.uint32)
+
+
+def k6_model(buf, off, h, w):
+    """csrc/reduce_codes.cu, every thread at once: thread t of the flat grid
+    owns row pair r = t // chunks and columns x0 = (t % chunks) * kCols.
+    With the base 16-byte aligned and W % 16 == 0 it loads kCols bytes of
+    each row (the bottom row past an odd H as 0), takes each output's 2x2
+    maximum of 4 codes and stores kCols / 2 codes; otherwise it reads its
+    columns byte by byte within the image. Returns the (ceil(H/2),
+    ceil(W/2)) codes as int32 and how often each output was written."""
+    cols = K6_COLS
+    h2, w2 = (h + 1) // 2, (w + 1) // 2
+    chunks = -(-w // cols)
+    n = h2 * chunks
+    t = np.arange(-(-n // K6_THREADS) * K6_THREADS)
+    t = t[t < n]
+    r = t // chunks
+    x0, y0 = (t - r * chunks) * cols, 2 * r
+    out = np.zeros(h2 * w2, np.uint32)
+    writes = np.zeros(h2 * w2, np.int64)
+    if off % 16 == 0 and w % 16 == 0:
+        at = off + y0[:, None] * w + x0[:, None] + np.arange(cols)
+        top = _words(buf[at])
+        bottom = np.where((y0 + 1 < h)[:, None], _words(buf[np.minimum(at + w, buf.size - 1)]),
+                          0).astype(np.uint32)
+        for k in range(cols // 2):
+            a = top[:, k // 2] >> np.uint32(16 * (k % 2))
+            b = bottom[:, k // 2] >> np.uint32(16 * (k % 2))
+            x = x0 + 2 * k
+            code = np.maximum(np.maximum(_encode(a & 0xFF, x, y0), _encode((a >> 8) & 0xFF, x + 1, y0)),
+                              np.maximum(_encode(b & 0xFF, x, y0 + 1),
+                                         _encode((b >> 8) & 0xFF, x + 1, y0 + 1)))
+            out[r * w2 + x0 // 2 + k] = code
+            np.add.at(writes, r * w2 + x0 // 2 + k, 1)
+    else:
+        for k in range(cols // 2):
+            x = x0 + 2 * k
+            live = x < w
+            best = np.zeros(t.size, np.uint32)
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    ok = live & (y0 + dy < h) & (x + dx < w)
+                    px = buf[np.where(ok, off + (y0 + dy) * w + x + dx, 0)]
+                    best = np.maximum(best, np.where(ok, _encode(px, x + dx, y0 + dy), 0))
+            idx = (r * w2 + x0 // 2 + k)[live]
+            out[idx] = best[live]
+            np.add.at(writes, idx, 1)
+    return out.view(np.int32).reshape(h2, w2), writes
+
+
+def byte_perm(x, y, s: int):
+    """CUDA's __byte_perm(x, y, s): byte n of the result is byte
+    (s >> 4n) & 7 of the 8 bytes y:x."""
+    v = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(x.shape, np.uint64)
+    for n in range(4):
+        sel = (s >> (4 * n)) & 7
+        out |= ((v >> np.uint64(8 * sel)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def k3a_model(buf, off, h, w):
+    """csrc/pack_row_strips.cu, every thread at once: block (bx, seg) thread
+    i owns row group r = bx * kRows + i // kLanes and columns x = 128 seg +
+    (i % kLanes) * kTile; it loads kTile bytes of each of its 4 rows (as one
+    load where the base is 16-byte aligned, else byte by byte: the same
+    words), transposes each 4x4 byte block with the 8 byte permutes, and
+    stores its kTile words to strip seg at column x % 128 where seg < W/128
+    - 1 and to strip seg - 1 at column 128 + x % 128 where seg > 0. Returns
+    the strips as int32 and how often each word was written."""
+    tile = K3A_TILE
+    lanes = 128 // tile
+    rows_per_block = K3A_THREADS // lanes
+    h4, segs = h // 4, w // 128
+    ns = segs - 1
+    bx, seg, i = np.meshgrid(np.arange(-(-h4 // rows_per_block)), np.arange(segs),
+                             np.arange(K3A_THREADS), indexing="ij")
+    r = (bx * rows_per_block + i // lanes).ravel()
+    seg, col = seg.ravel()[r < h4], (i % lanes * tile).ravel()[r < h4]
+    r = r[r < h4]
+    at = off + 4 * r * w + 128 * seg + col
+    rows = [_words(buf[at[:, None] + j * w + np.arange(tile)]) for j in range(4)]
+    words = []
+    for g in range(tile // 4):
+        a, b, c, d = (rw[:, g] for rw in rows)
+        t0, t1 = byte_perm(a, b, 0x5140), byte_perm(c, d, 0x5140)
+        t2, t3 = byte_perm(a, b, 0x7362), byte_perm(c, d, 0x7362)
+        words += [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
+                  byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632)]
+    words = np.stack(words, 1)
+    out = np.zeros(ns * h4 * 256, np.uint32)
+    writes = np.zeros(out.size, np.int64)
+    for keep, base in ((seg < ns, (seg * h4 + r) * 256 + col),
+                       (seg > 0, ((seg - 1) * h4 + r) * 256 + 128 + col)):
+        idx = base[keep][:, None] + np.arange(tile)
+        out[idx] = words[keep]
+        np.add.at(writes, idx.ravel(), 1)
+    return out.view(np.int32).reshape(ns, h4, 256), writes
+
+
+def _scored(h, w, seed, dense=0.4):
+    rng = np.random.default_rng(seed)
+    s = rng.integers(1, 256, (h, w), dtype=np.uint8)
+    s[rng.random((h, w)) >= dense] = 0
+    return s
+
+
+# the pyramids, odd H, odd W, W = 2, W % 16 in {2, 8, 14}, bases offset by 0,
+# 1, 4 and 8 bytes, all zero, and every pixel at score 255 (2x2 maxima
+# decided by x then y) up to the 4095 coordinate limit
+K6_CASES = {"eval": ((800, 384), 0), "vga": ((2216, 640), 0), "odd H": ((61, 64), 0),
+            "odd W": ((64, 61), 0), "W=2": ((63, 2), 0), "W%16=2": ((40, 130), 0),
+            "W%16=8": ((41, 136), 0), "W%16=14": ((40, 142), 0), "base+1": ((64, 256), 1),
+            "base+4": ((64, 256), 4), "base+8": ((64, 256), 8), "all zero": ((64, 256), 0),
+            "255 at x 4095": ((6, 4096), 0), "255 at y 4095": ((4096, 16), 0),
+            "255 at 4095 odd": ((4095, 17), 3)}
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_thread_model_equals_plain(case):
+    (h, w), off = K6_CASES[case]
+    if case == "all zero":
+        scored = np.zeros((h, w), np.uint8)
+    elif case.startswith("255"):
+        scored = np.full((h, w), 255, np.uint8)
+    else:
+        scored = _scored(h, w, h * 7 + w + off)
+    got, writes = k6_model(*_in_buffer(scored, off), h, w)
+    want = kernels.reduce_codes_4x_plain(t(scored)).numpy()
+    assert np.array_equal(got, want)
+    assert (writes == 1).all()                   # each code written once
+    if case.startswith("255"):                   # the largest x, then y, of each block
+        assert got.view(np.uint32)[-1, -1] >> 24 == 255
+        assert (got.view(np.uint32)[-1, -1] >> 12) & 0xFFF == w - 1
+        assert got.view(np.uint32)[-1, -1] & 0xFFF == h - 1
+
+
+def test_byte_perm_transposes_4x4_blocks():
+    """The 8 permutes turn 4 row words into 4 column words (tolerance 0)."""
+    rows = np.random.default_rng(3).integers(0, 2**32, (4, 1000), dtype=np.uint32)
+    a, b, c, d = rows
+    t0, t1 = byte_perm(a, b, 0x5140), byte_perm(c, d, 0x5140)
+    t2, t3 = byte_perm(a, b, 0x7362), byte_perm(c, d, 0x7362)
+    got = [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
+           byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632)]
+    by = rows.T.copy().view(np.uint8).reshape(-1, 4, 4)      # (n, row, column)
+    want = np.ascontiguousarray(by.transpose(0, 2, 1)).view("<u4")[..., 0].T
+    assert np.array_equal(np.stack(got), want)
+
+
+# the pyramids, W = 256 (one strip), 384 and 640, H = 4, bases offset by 1 and 8
+K3A_CASES = {"eval": ((800, 384), 0), "vga": ((2216, 640), 0), "W=256": ((64, 256), 0),
+             "W=384": ((64, 384), 0), "W=640": ((64, 640), 0), "H=4": ((4, 384), 0),
+             "H=4 W=256": ((4, 256), 0), "base+1": ((64, 384), 1), "base+8": ((64, 384), 8)}
+
+
+@pytest.mark.parametrize("case", list(K3A_CASES))
+def test_k3a_thread_model_equals_plain(case):
+    (h, w), off = K3A_CASES[case]
+    img = np.random.default_rng(h + w + off).integers(0, 256, (h, w), np.uint8)
+    got, writes = k3a_model(*_in_buffer(img, off), h, w)
+    assert np.array_equal(got, kernels.pack_row_strips_plain(t(img)).numpy())
+    assert (writes == 1).all()                   # each strip word written once
