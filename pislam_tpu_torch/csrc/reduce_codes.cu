@@ -34,28 +34,47 @@ __device__ __forceinline__ uint32_t encode(uint32_t b, uint32_t x, uint32_t y) {
   return b ? (b << 24) | (x << 12) | y : 0u;
 }
 
-// kCols bytes of one row from a 16-byte-aligned (kCols = 16) or 8-byte-
-// aligned (kCols = 8) address, as little-endian words, through the
-// read-only path
+// kCols bytes of one row from a kCols-byte-aligned address, as
+// little-endian words, through the read-only path
 template <int kCols>
 __device__ __forceinline__ void load_row(const uint8_t* p, uint32_t (&v)[kCols / 4]) {
   if constexpr (kCols == 16) {
     const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else {
-    static_assert(kCols == 8, "a chunk is 8 or 16 columns");
+  } else if constexpr (kCols == 8) {
     const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
     v[0] = q.x, v[1] = q.y;
+  } else {
+    static_assert(kCols == 4, "a chunk is 4, 8 or 16 columns");
+    v[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
   }
 }
 
-template <int kCols, int kThreads, bool kVector>
+// t / d for 0 <= t < 2^31 by a multiply-high: mul = ceil(2^(31 + l) / d),
+// l = ceil(log2 d), shift = l - 1 (d = 1: mul = 0, t itself)
+struct Divisor {
+  uint32_t mul, shift;
+};
+
+inline Divisor make_divisor(uint32_t d) {
+  uint32_t l = 0;
+  while ((1u << l) < d) ++l;
+  if (d == 1) return {0u, 0u};
+  return {(uint32_t)(((1ull << (31 + l)) + d - 1) / d), l - 1};
+}
+
+__device__ __forceinline__ int divide(int t, Divisor d) {
+  return d.mul ? (int)(__umulhi((uint32_t)t, d.mul) >> d.shift) : t;
+}
+
+template <int kCols, int kThreads, bool kVector, bool kFastDiv>
 __global__ void __launch_bounds__(kThreads)
 reduce_codes_kernel(const uint8_t* __restrict__ scored, int h, int w,
-                    uint32_t* __restrict__ out, int w2, int chunks, int threads) {
+                    uint32_t* __restrict__ out, int w2, int chunks, Divisor by_chunks,
+                    int threads) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= threads) return;
-  const int r = t / chunks;
+  const int r = kFastDiv ? divide(t, by_chunks) : t / chunks;
   const int x0 = (t - r * chunks) * kCols;
   const int y0 = 2 * r;
   uint32_t* o = out + r * w2 + x0 / 2;
@@ -72,10 +91,14 @@ reduce_codes_kernel(const uint8_t* __restrict__ scored, int h, int w,
       codes[k] = max(max(encode(a & 0xFFu, x, y0), encode((a >> 8) & 0xFFu, x + 1, y0)),
                      max(encode(b & 0xFFu, x, y0 + 1), encode((b >> 8) & 0xFFu, x + 1, y0 + 1)));
     }
+    if constexpr (kCols == 4) {
+      *reinterpret_cast<uint2*>(o) = make_uint2(codes[0], codes[1]);
+    } else {
 #pragma unroll
-    for (int q = 0; q < kCols / 8; ++q)
-      reinterpret_cast<uint4*>(o)[q] =
-          make_uint4(codes[4 * q], codes[4 * q + 1], codes[4 * q + 2], codes[4 * q + 3]);
+      for (int q = 0; q < kCols / 8; ++q)
+        reinterpret_cast<uint4*>(o)[q] =
+            make_uint4(codes[4 * q], codes[4 * q + 1], codes[4 * q + 2], codes[4 * q + 3]);
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < kCols / 2; ++k) {
@@ -94,7 +117,7 @@ reduce_codes_kernel(const uint8_t* __restrict__ scored, int h, int w,
   }
 }
 
-template <int kCols, int kThreads>
+template <int kCols, int kThreads, bool kFastDiv>
 cudaError_t launch_reduce_codes(const uint8_t* scored, int h, int w, uint32_t* out,
                                 cudaStream_t stream) {
   const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
@@ -104,12 +127,13 @@ cudaError_t launch_reduce_codes(const uint8_t* scored, int h, int w, uint32_t* o
     const int blocks = (threads + kThreads - 1) / kThreads;
     const bool vector = reinterpret_cast<uintptr_t>(scored) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(out) % 16 == 0 && w % 16 == 0;
+    const Divisor by_chunks = make_divisor(chunks);
     if (vector)
-      reduce_codes_kernel<kCols, kThreads, true><<<blocks, kThreads, 0, stream>>>(
-          scored, h, w, out, w2, chunks, threads);
+      reduce_codes_kernel<kCols, kThreads, true, kFastDiv><<<blocks, kThreads, 0, stream>>>(
+          scored, h, w, out, w2, chunks, by_chunks, threads);
     else
-      reduce_codes_kernel<kCols, kThreads, false><<<blocks, kThreads, 0, stream>>>(
-          scored, h, w, out, w2, chunks, threads);
+      reduce_codes_kernel<kCols, kThreads, false, kFastDiv><<<blocks, kThreads, 0, stream>>>(
+          scored, h, w, out, w2, chunks, by_chunks, threads);
   }
   return cudaGetLastError();
 }
@@ -120,6 +144,6 @@ cudaError_t launch_reduce_codes(const uint8_t* scored, int h, int w, uint32_t* o
 PISLAM_API int pislam_reduce_codes(const uint8_t* scored, int h, int w,
                                    int32_t* out, cudaStream_t stream) {
   if (h < 0 || w < 0 || h > 4096 || w > 4096) return (int)cudaErrorInvalidValue;
-  return (int)launch_reduce_codes<16, 256>(scored, h, w, reinterpret_cast<uint32_t*>(out),
+  return (int)launch_reduce_codes<8, 256, false>(scored, h, w, reinterpret_cast<uint32_t*>(out),
                                            stream);
 }

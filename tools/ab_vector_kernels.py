@@ -42,8 +42,9 @@ import chip_smoke as cs  # noqa: E402
 from pislam_tpu_torch.ops import _build, kernels  # noqa: E402
 
 REPS = 50
-K6_BUILDS = [(cols, threads) for cols in (8, 16) for threads in (128, 256)]
-K3A_BUILDS = [(tile, threads) for tile in (4, 8, 16) for threads in (64, 128, 256)]
+K6_BUILDS = [(cols, threads, fast) for cols in (4, 8, 16) for threads in (128, 256, 512)
+             for fast in (0, 1)]
+K3A_BUILDS = [(tile, threads) for tile in (4, 8, 16) for threads in (64, 128, 256, 512)]
 # (entry point, launcher template, builds) of each source
 SWEEPS = {"reduce_codes.cu": ("sweep_reduce_codes", "launch_reduce_codes", K6_BUILDS),
           "pack_row_strips.cu": ("sweep_pack_row_strips", "launch_pack_row_strips",
@@ -82,9 +83,10 @@ def sweep_sources() -> list[Path]:
     paths = []
     for source, (entry, launcher, builds) in SWEEPS.items():
         lines = [f'#include "{source}"']
-        lines += [f"PISLAM_API int {entry}_{a}_{b}(const uint8_t* in, int h, int w, "
-                  f"int32_t* out, cudaStream_t s) {{ return (int){launcher}<{a}, {b}>("
-                  f"in, h, w, reinterpret_cast<uint32_t*>(out), s); }}" for a, b in builds]
+        lines += [f"PISLAM_API int {entry}_{'_'.join(map(str, b))}(const uint8_t* in, "
+                  f"int h, int w, int32_t* out, cudaStream_t s) {{ return (int){launcher}<"
+                  f"{', '.join(map(str, b))}>(in, h, w, reinterpret_cast<uint32_t*>(out), s); }}"
+                  for b in builds]
         path = out / f"sweep_{Path(source).stem}.cu"
         path.write_text("\n".join(lines) + "\n")
         paths.append(path)
@@ -172,7 +174,8 @@ def main():
             check(f"{name} {which}", fn, cases, plain, shape)
         builds = SWEEPS["reduce_codes.cu" if name == "reduce_codes_4x"
                         else "pack_row_strips.cu"]
-        variants = {f"{a}x{b}": entry(sweep, f"{builds[0]}_{a}_{b}") for a, b in builds[2]}
+        variants = {"x".join(map(str, b)): entry(sweep, f"{builds[0]}_{'_'.join(map(str, b))}")
+                    for b in builds[2]}
         for vname, fn in variants.items():
             check(f"{name} build {vname}", fn, cases, plain, shape)
         result["ab"][name], result["sweep"][name] = {}, {v: {} for v in variants}
