@@ -10,97 +10,58 @@
 // over 3.35 TB/s. There is no arithmetic to speak of; at the pyramids' sizes
 // the image sits in L2, so what costs is instructions and latency.
 //
-// Design: one thread per 4-row x kTile-column tile of the image, on a grid
-// of (row-group blocks, 128-column segments): a thread's row group and
-// columns come from its indices by shifts and masks of constants. It loads
-// its tile once, one kTile-byte load per row, transposes each 4x4 byte block
-// in registers with 8 byte permutes, and writes its kTile words with 16-byte
-// stores to every strip that holds those columns: strip x / 128 at column
-// x % 128 (all but the last segment) and strip x / 128 - 1 at column
-// 128 + x % 128 (all but the first). So the image is read once. W % 128 == 0
-// keeps every row 16-byte aligned when the base is; where the base is not
-// (a contiguous view can start at any byte), the same launch loads the tile
-// byte by byte. The TPU packed rows by bitcasting sublanes.
+// Design: a thread per 4-row x 4-column tile of the image, on a grid of
+// (blocks of 8 row groups, 128-column segments) of 256 threads: a thread's
+// row group and columns come from its indices by shifts and masks. It loads
+// its tile once, one 4-byte load per row (a warp's loads cover a whole 128-
+// byte line of each row), transposes the 4x4 bytes in registers with 8 byte
+// permutes, and writes its 4 words with one 16-byte store (a warp's store a
+// whole 512-byte strip row) to every strip that holds those columns: strip
+// x / 128 at column x % 128 (all but the last segment) and strip x / 128 - 1
+// at column 128 + x % 128 (all but the first). So the image is read once.
+// W % 128 == 0 keeps every row aligned when the base is; where the base is
+// not 4-byte aligned (a contiguous view can start at any byte), the same
+// launch loads the tile byte by byte. 4-column tiles and 256 threads were the
+// fastest at eval among the builds within 10 % of the fastest at VGA (tiles
+// of 4, 8 and 16 columns x 64, 128, 256 and 512 threads; PERF.md §6): wider
+// tiles leave a warp's stores strided. The TPU packed rows by bitcasting
+// sublanes.
 #include "common.cuh"
 
 namespace {
 
-// kTile bytes of one row as little-endian words: one load from an aligned
-// address, or byte by byte
-template <int kTile, bool kVector>
-__device__ __forceinline__ void load_row(const uint8_t* p, uint32_t (&v)[kTile / 4]) {
-  if constexpr (!kVector) {
-#pragma unroll
-    for (int g = 0; g < kTile / 4; ++g)
-      v[g] = (uint32_t)p[4 * g] | ((uint32_t)p[4 * g + 1] << 8) |
-             ((uint32_t)p[4 * g + 2] << 16) | ((uint32_t)p[4 * g + 3] << 24);
-  } else if constexpr (kTile == 16) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else if constexpr (kTile == 8) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = q.x, v[1] = q.y;
-  } else {
-    static_assert(kTile == 4, "a tile is 4, 8 or 16 columns");
-    v[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
-  }
-}
+constexpr int kThreads = 256;
+constexpr int kLanes = 32;                      // threads per segment and row group
+constexpr int kRows = kThreads / kLanes;        // row groups per block
 
-template <int kTile>
-__device__ __forceinline__ void store_words(uint32_t* o, const uint32_t (&words)[kTile]) {
-#pragma unroll
-  for (int q = 0; q < kTile / 4; ++q)
-    reinterpret_cast<uint4*>(o)[q] =
-        make_uint4(words[4 * q], words[4 * q + 1], words[4 * q + 2], words[4 * q + 3]);
-}
-
-template <int kTile, int kThreads, bool kVector>
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 pack_row_strips_kernel(const uint8_t* __restrict__ img, int h4, int w,
                        uint32_t* __restrict__ out) {
-  constexpr int kLanes = 128 / kTile;            // threads per segment and row group
-  constexpr int kRows = kThreads / kLanes;       // row groups per block
-  static_assert(kThreads % kLanes == 0, "a block holds whole segment rows");
   const int r = blockIdx.x * kRows + threadIdx.x / kLanes;
   if (r >= h4) return;
   const int seg = blockIdx.y;
-  const int col = threadIdx.x % kLanes * kTile;  // column within the segment
+  const int col = threadIdx.x % kLanes * 4;     // column within the segment
   const uint8_t* p = img + 4 * r * w + 128 * seg + col;
-  uint32_t rows[4][kTile / 4];
+  uint32_t row[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) load_row<kTile, kVector>(p + i * w, rows[i]);
-  uint32_t words[kTile];
-#pragma unroll
-  for (int g = 0; g < kTile / 4; ++g) {
-    // rows a, b, c, d -> columns: t0 = a0 b0 a1 b1, t1 = c0 d0 c1 d1,
-    // t2 = a2 b2 a3 b3, t3 = c2 d2 c3 d3 (bytes from the low end)
-    const uint32_t t0 = __byte_perm(rows[0][g], rows[1][g], 0x5140);
-    const uint32_t t1 = __byte_perm(rows[2][g], rows[3][g], 0x5140);
-    const uint32_t t2 = __byte_perm(rows[0][g], rows[1][g], 0x7362);
-    const uint32_t t3 = __byte_perm(rows[2][g], rows[3][g], 0x7362);
-    words[4 * g] = __byte_perm(t0, t1, 0x5410);
-    words[4 * g + 1] = __byte_perm(t0, t1, 0x7632);
-    words[4 * g + 2] = __byte_perm(t2, t3, 0x5410);
-    words[4 * g + 3] = __byte_perm(t2, t3, 0x7632);
+  for (int i = 0; i < 4; ++i) {
+    const uint8_t* q = p + i * w;
+    row[i] = kAligned ? __ldg(reinterpret_cast<const uint32_t*>(q))
+                      : (uint32_t)q[0] | ((uint32_t)q[1] << 8) | ((uint32_t)q[2] << 16) |
+                            ((uint32_t)q[3] << 24);
   }
+  // rows a, b, c, d -> columns: t0 = a0 b0 a1 b1, t1 = c0 d0 c1 d1,
+  // t2 = a2 b2 a3 b3, t3 = c2 d2 c3 d3 (bytes from the low end)
+  const uint32_t t0 = __byte_perm(row[0], row[1], 0x5140);
+  const uint32_t t1 = __byte_perm(row[2], row[3], 0x5140);
+  const uint32_t t2 = __byte_perm(row[0], row[1], 0x7362);
+  const uint32_t t3 = __byte_perm(row[2], row[3], 0x7362);
+  const uint4 words = make_uint4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                                 __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
   const int strips = gridDim.y - 1;
-  if (seg < strips) store_words<kTile>(out + (seg * h4 + r) * 256 + col, words);
-  if (seg > 0) store_words<kTile>(out + ((seg - 1) * h4 + r) * 256 + 128 + col, words);
-}
-
-template <int kTile, int kThreads>
-cudaError_t launch_pack_row_strips(const uint8_t* img, int h, int w, uint32_t* out,
-                                   cudaStream_t stream) {
-  constexpr int kRows = kThreads * kTile / 128;
-  const int h4 = h / 4;
-  const dim3 grid((h4 + kRows - 1) / kRows, w / 128);
-  if (reinterpret_cast<uintptr_t>(img) % 16 == 0)
-    pack_row_strips_kernel<kTile, kThreads, true><<<grid, kThreads, 0, stream>>>(
-        img, h4, w, out);
-  else
-    pack_row_strips_kernel<kTile, kThreads, false><<<grid, kThreads, 0, stream>>>(
-        img, h4, w, out);
-  return cudaGetLastError();
+  if (seg < strips) *reinterpret_cast<uint4*>(out + (seg * h4 + r) * 256 + col) = words;
+  if (seg > 0) *reinterpret_cast<uint4*>(out + ((seg - 1) * h4 + r) * 256 + 128 + col) = words;
 }
 
 }  // namespace
@@ -113,6 +74,12 @@ PISLAM_API int pislam_pack_row_strips(const uint8_t* img, int h, int w, int32_t*
   if (h < 4 || h % 4 || w % 128 || w < 256 || (long long)h * w >= (1LL << 30) ||
       w / 128 > 65535 || reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_pack_row_strips<16, 128>(img, h, w, reinterpret_cast<uint32_t*>(out),
-                                              stream);
+  const int h4 = h / 4;
+  const dim3 grid((h4 + kRows - 1) / kRows, w / 128);
+  uint32_t* strips = reinterpret_cast<uint32_t*>(out);
+  if (reinterpret_cast<uintptr_t>(img) % 4 == 0)
+    pack_row_strips_kernel<true><<<grid, kThreads, 0, stream>>>(img, h4, w, strips);
+  else
+    pack_row_strips_kernel<false><<<grid, kThreads, 0, stream>>>(img, h4, w, strips);
+  return (int)cudaGetLastError();
 }

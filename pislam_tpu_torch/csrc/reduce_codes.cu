@@ -12,42 +12,32 @@
 //
 // Bound: bytes, 1 read + 2 written per input pixel (0.3 + 0.6 MB at the eval
 // pyramid's 800x384, 0.18 us); no arithmetic to speak of. At these sizes the
-// grid sits in L2, so what costs is instructions and latency: the load and
-// store instructions, idle lanes and index arithmetic.
+// grid sits in L2, so what costs is instructions and latency: load and store
+// instructions, idle lanes and index arithmetic.
 //
-// Design: one thread per row pair x kCols-column chunk, on a flat grid of
-// ceil(H/2) * ceil(W/kCols) threads that the card holds in one wave. Where
-// the grid's base and the output are 16-byte aligned and W % 16 == 0, a
-// thread makes one kCols-byte load per row, builds the kCols codes in
-// registers, takes the 2x2 maxima and writes kCols/2 codes with 16-byte
-// stores, so a warp writes whole lines. Otherwise (any contiguous view can
-// start at any byte, and W need not be a multiple of 16) every thread of
-// the same launch takes the same columns byte by byte, which covers the
-// tail columns and an odd last column; an odd last row reads as 0 on both
-// paths. The input is neither rounded nor padded. The thread's row pair
-// and chunk come from one 32-bit division, its only one.
+// Design: a thread per row pair x 8-column chunk, on a flat grid of
+// ceil(H/2) * ceil(W/8) threads in 256-thread blocks, which the card holds
+// in one wave; its row pair comes from a multiply-high by a constant the
+// host computes, not a division. Where the grid's base and the output are
+// 16-byte aligned and W % 16 == 0, a thread makes one 8-byte load per row,
+// builds its 8 codes and their 4 2x2 maxima in registers and writes them
+// with one 16-byte store, so a warp's loads and stores each cover whole
+// lines. Otherwise (any contiguous view can start at any byte, and W need
+// not be a multiple of 16) every thread of the same launch reads its columns
+// byte by byte, which covers the tail columns and an odd last column. An
+// odd last row reads as 0 on both paths; the input is neither rounded nor
+// padded. 8 columns and 256 threads were the fastest at eval among the
+// builds within 10 % of the fastest at VGA (chunks of 4, 8, 16 columns x
+// 128, 256, 512 threads; PERF.md §6).
 #include "common.cuh"
 
 namespace {
 
+constexpr int kCols = 8;
+constexpr int kThreads = 256;
+
 __device__ __forceinline__ uint32_t encode(uint32_t b, uint32_t x, uint32_t y) {
   return b ? (b << 24) | (x << 12) | y : 0u;
-}
-
-// kCols bytes of one row from a kCols-byte-aligned address, as
-// little-endian words, through the read-only path
-template <int kCols>
-__device__ __forceinline__ void load_row(const uint8_t* p, uint32_t (&v)[kCols / 4]) {
-  if constexpr (kCols == 16) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else if constexpr (kCols == 8) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = q.x, v[1] = q.y;
-  } else {
-    static_assert(kCols == 4, "a chunk is 4, 8 or 16 columns");
-    v[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
-  }
 }
 
 // t / d for 0 <= t < 2^31 by a multiply-high: mul = ceil(2^(31 + l) / d),
@@ -56,7 +46,7 @@ struct Divisor {
   uint32_t mul, shift;
 };
 
-inline Divisor make_divisor(uint32_t d) {
+Divisor make_divisor(uint32_t d) {
   uint32_t l = 0;
   while ((1u << l) < d) ++l;
   if (d == 1) return {0u, 0u};
@@ -67,38 +57,33 @@ __device__ __forceinline__ int divide(int t, Divisor d) {
   return d.mul ? (int)(__umulhi((uint32_t)t, d.mul) >> d.shift) : t;
 }
 
-template <int kCols, int kThreads, bool kVector, bool kFastDiv>
+template <bool kVector>
 __global__ void __launch_bounds__(kThreads)
 reduce_codes_kernel(const uint8_t* __restrict__ scored, int h, int w,
                     uint32_t* __restrict__ out, int w2, int chunks, Divisor by_chunks,
                     int threads) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= threads) return;
-  const int r = kFastDiv ? divide(t, by_chunks) : t / chunks;
+  const int r = divide(t, by_chunks);
   const int x0 = (t - r * chunks) * kCols;
   const int y0 = 2 * r;
   uint32_t* o = out + r * w2 + x0 / 2;
   if constexpr (kVector) {
-    uint32_t top[kCols / 4], bottom[kCols / 4] = {};
-    load_row<kCols>(scored + y0 * w + x0, top);
-    if (y0 + 1 < h) load_row<kCols>(scored + (y0 + 1) * w + x0, bottom);
+    const uint2 top = __ldg(reinterpret_cast<const uint2*>(scored + y0 * w + x0));
+    const uint2 bottom = y0 + 1 < h
+        ? __ldg(reinterpret_cast<const uint2*>(scored + (y0 + 1) * w + x0))
+        : make_uint2(0u, 0u);
     uint32_t codes[kCols / 2];
 #pragma unroll
     for (int k = 0; k < kCols / 2; ++k) {
-      const int shift = 16 * (k % 2);     // bytes 2k, 2k + 1 of the chunk
-      const uint32_t a = top[k / 2] >> shift, b = bottom[k / 2] >> shift;
+      // bytes 2k and 2k + 1 of each row
+      const uint32_t a = (k < 2 ? top.x : top.y) >> (16 * (k % 2));
+      const uint32_t b = (k < 2 ? bottom.x : bottom.y) >> (16 * (k % 2));
       const uint32_t x = x0 + 2 * k;
       codes[k] = max(max(encode(a & 0xFFu, x, y0), encode((a >> 8) & 0xFFu, x + 1, y0)),
                      max(encode(b & 0xFFu, x, y0 + 1), encode((b >> 8) & 0xFFu, x + 1, y0 + 1)));
     }
-    if constexpr (kCols == 4) {
-      *reinterpret_cast<uint2*>(o) = make_uint2(codes[0], codes[1]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < kCols / 8; ++q)
-        reinterpret_cast<uint4*>(o)[q] =
-            make_uint4(codes[4 * q], codes[4 * q + 1], codes[4 * q + 2], codes[4 * q + 3]);
-    }
+    *reinterpret_cast<uint4*>(o) = make_uint4(codes[0], codes[1], codes[2], codes[3]);
   } else {
 #pragma unroll
     for (int k = 0; k < kCols / 2; ++k) {
@@ -117,33 +102,26 @@ reduce_codes_kernel(const uint8_t* __restrict__ scored, int h, int w,
   }
 }
 
-template <int kCols, int kThreads, bool kFastDiv>
-cudaError_t launch_reduce_codes(const uint8_t* scored, int h, int w, uint32_t* out,
-                                cudaStream_t stream) {
-  const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
-  if (h2 > 0 && w2 > 0) {
-    const int chunks = (w + kCols - 1) / kCols;
-    const int threads = h2 * chunks;
-    const int blocks = (threads + kThreads - 1) / kThreads;
-    const bool vector = reinterpret_cast<uintptr_t>(scored) % 16 == 0 &&
-                        reinterpret_cast<uintptr_t>(out) % 16 == 0 && w % 16 == 0;
-    const Divisor by_chunks = make_divisor(chunks);
-    if (vector)
-      reduce_codes_kernel<kCols, kThreads, true, kFastDiv><<<blocks, kThreads, 0, stream>>>(
-          scored, h, w, out, w2, chunks, by_chunks, threads);
-    else
-      reduce_codes_kernel<kCols, kThreads, false, kFastDiv><<<blocks, kThreads, 0, stream>>>(
-          scored, h, w, out, w2, chunks, by_chunks, threads);
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // scored (h, w) u8 with h, w <= 4096 (12-bit coordinates); out (ceil(h/2), ceil(w/2)).
 PISLAM_API int pislam_reduce_codes(const uint8_t* scored, int h, int w,
                                    int32_t* out, cudaStream_t stream) {
   if (h < 0 || w < 0 || h > 4096 || w > 4096) return (int)cudaErrorInvalidValue;
-  return (int)launch_reduce_codes<8, 256, false>(scored, h, w, reinterpret_cast<uint32_t*>(out),
-                                           stream);
+  const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
+  if (h2 > 0 && w2 > 0) {
+    const int chunks = (w + kCols - 1) / kCols;
+    const int threads = h2 * chunks;
+    const int blocks = (threads + kThreads - 1) / kThreads;
+    uint32_t* codes = reinterpret_cast<uint32_t*>(out);
+    const bool vector = reinterpret_cast<uintptr_t>(scored) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(out) % 16 == 0 && w % 16 == 0;
+    if (vector)
+      reduce_codes_kernel<true><<<blocks, kThreads, 0, stream>>>(
+          scored, h, w, codes, w2, chunks, make_divisor(chunks), threads);
+    else
+      reduce_codes_kernel<false><<<blocks, kThreads, 0, stream>>>(
+          scored, h, w, codes, w2, chunks, make_divisor(chunks), threads);
+  }
+  return (int)cudaGetLastError();
 }

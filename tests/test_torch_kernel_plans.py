@@ -500,10 +500,10 @@ def test_match_reduce_chunked_equals_plain(k1, k2, words, gated, chunk):
 # K6 reduce_codes_4x and K3a pack_row_strips: each thread's work
 # ---------------------------------------------------------------------------
 
-# csrc/reduce_codes.cu's kCols and kThreads, csrc/pack_row_strips.cu's kTile
-# and kThreads: the kept builds
-K6_COLS, K6_THREADS = 16, 256
-K3A_TILE, K3A_THREADS = 16, 128
+# csrc/reduce_codes.cu's kCols and kThreads; csrc/pack_row_strips.cu's tile
+# (4 columns: kLanes = 32 per 128-column segment) and kThreads
+K6_COLS, K6_THREADS = 8, 256
+K3A_TILE, K3A_THREADS = 4, 256
 
 
 def _in_buffer(a, offset):
@@ -514,10 +514,13 @@ def _in_buffer(a, offset):
                            np.full(16, 0xA5, np.uint8)]), offset
 
 
-def _words(rows):
+def _words(rows, aligned=True):
     """(n, b) bytes -> (n, b / 4) little-endian u32 words: what a vector load
-    of b bytes gives, and what the scalar path assembles byte by byte."""
-    return np.ascontiguousarray(rows).view("<u4").astype(np.uint32)
+    of b bytes gives (aligned), or what the byte path assembles."""
+    if aligned:
+        return np.ascontiguousarray(rows).view("<u4").astype(np.uint32)
+    b = rows.reshape(rows.shape[0], -1, 4).astype(np.uint32)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
 
 
 def _encode(b, x, y):
@@ -525,9 +528,24 @@ def _encode(b, x, y):
     return np.where(b != 0, (b << 24) | (np.uint32(x) << 12) | np.uint32(y), 0).astype(np.uint32)
 
 
+def divisor(d: int) -> tuple[int, int]:
+    """csrc/reduce_codes.cu's make_divisor: (mul, shift) with t / d ==
+    umulhi(t, mul) >> shift for 0 <= t < 2^31 (mul = 0: d = 1)."""
+    lg = (d - 1).bit_length()
+    return (0, 0) if d == 1 else (((1 << (31 + lg)) + d - 1) // d, lg - 1)
+
+
+def divide(t, mul: int, shift: int):
+    """The kernel's divide(): the high 32 bits of t * mul, shifted."""
+    if not mul:
+        return t
+    return ((t.astype(np.uint64) * np.uint64(mul)) >> np.uint64(32 + shift)).astype(np.int64)
+
+
 def k6_model(buf, off, h, w):
     """csrc/reduce_codes.cu, every thread at once: thread t of the flat grid
-    owns row pair r = t // chunks and columns x0 = (t % chunks) * kCols.
+    owns row pair r = t / chunks (by the multiply-high) and columns x0 =
+    (t - r * chunks) * kCols.
     With the base 16-byte aligned and W % 16 == 0 it loads kCols bytes of
     each row (the bottom row past an odd H as 0), takes each output's 2x2
     maximum of 4 codes and stores kCols / 2 codes; otherwise it reads its
@@ -539,7 +557,7 @@ def k6_model(buf, off, h, w):
     n = h2 * chunks
     t = np.arange(-(-n // K6_THREADS) * K6_THREADS)
     t = t[t < n]
-    r = t // chunks
+    r = divide(t, *divisor(chunks))
     x0, y0 = (t - r * chunks) * cols, 2 * r
     out = np.zeros(h2 * w2, np.uint32)
     writes = np.zeros(h2 * w2, np.int64)
@@ -588,7 +606,7 @@ def k3a_model(buf, off, h, w):
     """csrc/pack_row_strips.cu, every thread at once: block (bx, seg) thread
     i owns row group r = bx * kRows + i // kLanes and columns x = 128 seg +
     (i % kLanes) * kTile; it loads kTile bytes of each of its 4 rows (as one
-    load where the base is 16-byte aligned, else byte by byte: the same
+    load where the base is 4-byte aligned, else byte by byte: the same
     words), transposes each 4x4 byte block with the 8 byte permutes, and
     stores its kTile words to strip seg at column x % 128 where seg < W/128
     - 1 and to strip seg - 1 at column 128 + x % 128 where seg > 0. Returns
@@ -604,7 +622,8 @@ def k3a_model(buf, off, h, w):
     seg, col = seg.ravel()[r < h4], (i % lanes * tile).ravel()[r < h4]
     r = r[r < h4]
     at = off + 4 * r * w + 128 * seg + col
-    rows = [_words(buf[at[:, None] + j * w + np.arange(tile)]) for j in range(4)]
+    rows = [_words(buf[at[:, None] + j * w + np.arange(tile)], off % 4 == 0)
+            for j in range(4)]
     words = []
     for g in range(tile // 4):
         a, b, c, d = (rw[:, g] for rw in rows)
@@ -639,6 +658,16 @@ K6_CASES = {"eval": ((800, 384), 0), "vga": ((2216, 640), 0), "odd H": ((61, 64)
             "base+4": ((64, 256), 4), "base+8": ((64, 256), 8), "all zero": ((64, 256), 0),
             "255 at x 4095": ((6, 4096), 0), "255 at y 4095": ((4096, 16), 0),
             "255 at 4095 odd": ((4095, 17), 3)}
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 8, 48, 80, 97, 255, 256, 511, 512, 513, 4095])
+def test_k6_divisor_is_exact(d):
+    """The multiply-high gives t / d exactly for every thread index up to
+    the largest grid (2048 row pairs x 512 chunks) and around 2^31."""
+    mul, shift = divisor(d)
+    assert mul < 2**32
+    t = np.concatenate([np.arange(2048 * 512 + 1), np.arange(2**31 - 4096, 2**31)])
+    assert np.array_equal(divide(t, mul, shift), t // d)
 
 
 @pytest.mark.parametrize("case", list(K6_CASES))

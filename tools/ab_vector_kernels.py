@@ -1,25 +1,21 @@
 #!/usr/bin/env python3
 """K6 (csrc/reduce_codes.cu) and K3a (csrc/pack_row_strips.cu) on one CUDA
-card: the design before the 16-byte vector kernels against the current one,
-and the sweep of the current design's builds.
+card: the design before the 16-byte vector kernels against the current one.
 
     mkdir -p pislam_tpu_torch/_build/parent
     git archive <parent commit> pislam_tpu_torch/csrc | tar -x -C pislam_tpu_torch/_build/parent
     python3 tools/ab_vector_kernels.py --old pislam_tpu_torch/_build/parent/pislam_tpu_torch/csrc
 
-Builds the old design's two sources into a library of their own and every
-build of the sweep (K6: 8- and 16-column chunks x 128 and 256 threads; K3a:
-4-, 8- and 16-column tiles x 64, 128 and 256 threads) into another, under the
+Builds the old design's two sources into a library of their own under the
 git-ignored pislam_tpu_torch/_build/ab/, with the flags of ops/_build.py.
 Inputs are chip_smoke.py's: the unfused scored grid (K6) and the pyramid
 (K3a) of eval_seq's first frame at the eval config (800x384) and of a seeded
-VGA frame at the default config. Every build is held bit-exact to its plain
-version at both pyramids and on chip_smoke's edge cases before it is timed.
-Device time per call from torch.profiler (chip_smoke.device_us): old and
-current in turns old, new, new, old at each pyramid, beside an empty kernel
-and, for K3a, its library copy (chip_smoke.strips_by_copy); then each build
-of the sweep, twice, the second time in reverse order. Prints every number
-with the card's name and power limit and writes them to
+VGA frame at the default config (2216x640). Both designs are held bit-exact
+to the plain versions at both pyramids and on chip_smoke's edge cases before
+they are timed. Device time per call from torch.profiler
+(chip_smoke.device_us), in turns old, new, new, old at each pyramid, beside
+an empty kernel and, for K3a, its library copy (chip_smoke.strips_by_copy).
+Prints every number with the card's name and power limit and writes them to
 chiprun_out/ab_vector_kernels.json. Imports torch, numpy and the port only.
 """
 
@@ -42,13 +38,6 @@ import chip_smoke as cs  # noqa: E402
 from pislam_tpu_torch.ops import _build, kernels  # noqa: E402
 
 REPS = 50
-K6_BUILDS = [(cols, threads, fast) for cols in (4, 8, 16) for threads in (128, 256, 512)
-             for fast in (0, 1)]
-K3A_BUILDS = [(tile, threads) for tile in (4, 8, 16) for threads in (64, 128, 256, 512)]
-# (entry point, launcher template, builds) of each source
-SWEEPS = {"reduce_codes.cu": ("sweep_reduce_codes", "launch_reduce_codes", K6_BUILDS),
-          "pack_row_strips.cu": ("sweep_pack_row_strips", "launch_pack_row_strips",
-                                 K3A_BUILDS)}
 SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 
 
@@ -73,24 +62,6 @@ def build_library(name: str, sources: list[Path], include: Path) -> ctypes.CDLL:
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
                     *(str(obj) for obj, _ in jobs)], check=True)
     return ctypes.CDLL(str(lib))
-
-
-def sweep_sources() -> list[Path]:
-    """One source per kernel that includes the current .cu and exports an
-    entry point per build: <entry>_<columns>_<threads>."""
-    out = _build.BUILD_DIR / "ab" / "src"
-    out.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for source, (entry, launcher, builds) in SWEEPS.items():
-        lines = [f'#include "{source}"']
-        lines += [f"PISLAM_API int {entry}_{'_'.join(map(str, b))}(const uint8_t* in, "
-                  f"int h, int w, int32_t* out, cudaStream_t s) {{ return (int){launcher}<"
-                  f"{', '.join(map(str, b))}>(in, h, w, reinterpret_cast<uint32_t*>(out), s); }}"
-                  for b in builds]
-        path = out / f"sweep_{Path(source).stem}.cu"
-        path.write_text("\n".join(lines) + "\n")
-        paths.append(path)
-    return paths
 
 
 def entry(lib: ctypes.CDLL, name: str):
@@ -132,10 +103,8 @@ def main():
     dev = torch.device("cuda", 0)
     card = cs.card_label()
     print(card)
-    _build.load()
     old = build_library("old", [args.old / "reduce_codes.cu", args.old / "pack_row_strips.cu"],
                         args.old)
-    sweep = build_library("sweep", sweep_sources(), _build.CSRC)
     new = _build.load()
 
     cfgs = {"eval": cs.eval_config(), "vga": pt.PislamConfig()}
@@ -163,7 +132,7 @@ def main():
              "pack_row_strips": (k3a_in, {**k3a_in, **cs.k3a_edge_cases(dev)},
                                  kernels.pack_row_strips_plain, k3a_shape,
                                  "pislam_pack_row_strips")}
-    result = {"card": card, "reps": REPS, "ab": {}, "sweep": {}}
+    result = {"card": card, "reps": REPS, "ab": {}}
     empty_us = cs.device_us(lambda: kernels.empty_launch(dev), REPS)[0]
     result["empty_us"] = empty_us
     print(f"empty kernel: {empty_us:.3f} us [{card}]")
@@ -172,13 +141,7 @@ def main():
         fns = {"old": entry(old, c_name), "new": entry(new, c_name)}
         for which, fn in fns.items():
             check(f"{name} {which}", fn, cases, plain, shape)
-        builds = SWEEPS["reduce_codes.cu" if name == "reduce_codes_4x"
-                        else "pack_row_strips.cu"]
-        variants = {"x".join(map(str, b)): entry(sweep, f"{builds[0]}_{'_'.join(map(str, b))}")
-                    for b in builds[2]}
-        for vname, fn in variants.items():
-            check(f"{name} build {vname}", fn, cases, plain, shape)
-        result["ab"][name], result["sweep"][name] = {}, {v: {} for v in variants}
+        result["ab"][name] = {}
         for label, x in inputs.items():
             out = torch.empty(shape(x), dtype=torch.int32, device=dev)
             turns = [(which, cs.device_us(runner(fns[which], x, out), REPS)[0])
@@ -192,14 +155,6 @@ def main():
             print(f"ab {name} {label} {tuple(x.shape)}: "
                   + ", ".join(f"{w} {us:.3f}" for w, us in turns)
                   + f" us{lib_txt} (empty kernel {empty_us:.3f}) [{card}]")
-            order = list(variants)
-            for vname in order + order[::-1]:
-                us = cs.device_us(runner(variants[vname], x, out), REPS)[0]
-                result["sweep"][name][vname].setdefault(label, []).append(us)
-        for vname, by_label in result["sweep"][name].items():
-            print(f"sweep {name} build {vname}: "
-                  + ", ".join(f"{label} {' / '.join(f'{u:.3f}' for u in us)}"
-                              for label, us in by_label.items()) + f" us [{card}]")
     path = ROOT / "chiprun_out" / "ab_vector_kernels.json"
     path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps(result, indent=1))
