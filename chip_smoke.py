@@ -121,7 +121,9 @@ prints no result line):
    path). Its K5 launches on a line of their own.
 8. times from CUDA events (median of 30 after warm-up) and host clocks
    ending in a synchronize, device time and device kernels per call from
-   torch.profiler (K1 at the eval, VGA, KITTI and 720p pyramids under the
+   torch.profiler (each kernel beside its bound and, where one PyTorch call
+   computes its function, that call: torch.topk for K2, the strided copy
+   of strips_by_copy for K3a; K1 at the eval, VGA, KITTI and 720p pyramids under the
    plan's tile and under each tile forced; orb_describe against the
    composition it replaced, decode + K3 + K4 + masks, in turns old, new,
    new, old, alone and inside the extraction; orb_describe_dense against

@@ -65,12 +65,13 @@ K6 reduce_codes_4x       csrc/reduce_codes.cu
     (pallas_kernels.py:949, :917, :936): the unfused frontend's scored NMS
     grid -> 2x2 code max. Bound: bytes, 1 read + 2 written per pixel; the
     grid sits in L2, so instructions and latency are what cost. Design: a
-    thread per row pair x 16-column chunk on a flat grid that fills the
-    card in one wave: one 16-byte load per row, the codes and their 2x2
-    maxima in registers, two 16-byte stores. Where the base is not 16-byte
-    aligned or W % 16 != 0 the same launch reads byte by byte (tail
-    columns, odd last column); an odd last row reads as 0. Codes in true
-    row and column order.
+    thread per row pair x 8-column chunk on a flat grid that fills the card
+    in one wave (row pair by a multiply-high, no division): one 8-byte load
+    per row, the codes and their 2x2 maxima in registers, one 16-byte
+    store, so a warp's loads and stores cover whole lines. Where the base
+    is not 16-byte aligned or W % 16 != 0 the same launch reads byte by
+    byte (tail columns, odd last column); an odd last row reads as 0.
+    Codes in true row and column order.
 K4d orb_select_bits      csrc/orb_select_dense.cu
     Replaces ``orb_select_bits`` / ``_orb_select_kernel``
     (pallas_kernels.py:465, :444) under its own contract: any (1024, 7808)
@@ -102,11 +103,11 @@ K3+K4d orb_describe_dense csrc/orb_select_dense.cu
 K3a pack_row_strips      csrc/pack_row_strips.cu
     Replaces ``pack_row_strips`` (pallas_kernels.py:73): 4 image rows to one
     u32 per column, in 256-column strips, K3c's input. No path runs it.
-    Bound: bytes. Design: a thread per 4-row x 16-column tile, indices by
-    shifts and masks: one 16-byte load per row (byte by byte where the base
-    is not 16-byte aligned), a 4x4 byte transpose by 8 byte permutes per 4
-    columns, and 16-byte stores to each strip that holds the columns (one
-    or two), so the image is read once.
+    Bound: bytes. Design: a thread per 4-row x 4-column tile, indices by
+    shifts and masks: one 4-byte load per row (byte by byte where the base
+    is not 4-byte aligned), a 4x4 byte transpose by 8 byte permutes, and a
+    16-byte store to each strip that holds the columns (one or two), so the
+    image is read once and a warp's store is a whole 512-byte strip row.
 K3+K4 orb_describe       csrc/orb_describe.cu
     Replaces ``gather_windows_packed`` (pallas_kernels.py:195: K3a :79 and
     K3b :154) followed by ``orb_select_bits_sorted`` (pallas_kernels.py:528,

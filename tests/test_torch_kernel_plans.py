@@ -604,13 +604,13 @@ def byte_perm(x, y, s: int):
 
 def k3a_model(buf, off, h, w):
     """csrc/pack_row_strips.cu, every thread at once: block (bx, seg) thread
-    i owns row group r = bx * kRows + i // kLanes and columns x = 128 seg +
-    (i % kLanes) * kTile; it loads kTile bytes of each of its 4 rows (as one
+    i owns row group r = bx * kRows + i // kLanes and the 4 columns from x =
+    128 seg + (i % kLanes) * 4; it loads 4 bytes of each of its 4 rows (one
     load where the base is 4-byte aligned, else byte by byte: the same
-    words), transposes each 4x4 byte block with the 8 byte permutes, and
-    stores its kTile words to strip seg at column x % 128 where seg < W/128
-    - 1 and to strip seg - 1 at column 128 + x % 128 where seg > 0. Returns
-    the strips as int32 and how often each word was written."""
+    words), transposes the 4x4 bytes with the 8 byte permutes, and stores
+    its 4 words to strip seg at column x % 128 where seg < W/128 - 1 and to
+    strip seg - 1 at column 128 + x % 128 where seg > 0. Returns the strips
+    as int32 and how often each word was written."""
     tile = K3A_TILE
     lanes = 128 // tile
     rows_per_block = K3A_THREADS // lanes
