@@ -808,7 +808,8 @@ def k6_edge_cases(dev) -> dict:
 
 def k3a_edge_cases(dev) -> dict:
     """K3a's edge images: W = 256 (one strip), 384 and 640, H = 4, and the
-    base offset by 1 and 8 bytes (the scalar path)."""
+    base offset by 1 byte (the byte path) and by 8 (word loads off a 16-byte
+    boundary)."""
     rng = np.random.default_rng(14)
     cases = {f"{h}x{w}": torch.from_numpy(rng.integers(0, 256, (h, w), np.uint8)).to(dev)
              for h, w in ((64, 256), (64, 384), (64, 640), (4, 384), (4, 256))}

@@ -346,29 +346,22 @@ def _at_offset(a, offset, dev):
     return view
 
 
-@pytest.mark.parametrize("shape", [(64, 256), (61, 77), (800, 384), (2216, 640)])
-def test_k6(dev, shape):
-    rng = np.random.default_rng(shape[0])
-    scored = np.zeros(shape, np.uint8)
-    n = shape[0] * shape[1] // 40
-    ys, xs = rng.integers(0, shape[0], n), rng.integers(0, shape[1], n)
-    scored[ys - ys % 2, xs - xs % 2] = rng.integers(1, 256, n)   # <= 1 per 2x2 block
-    args = (t(scored).to(dev),)
-    _same(kernels.reduce_codes_4x(*args), kernels.reduce_codes_4x_plain(*args))
-
-
-# odd H, odd W, W = 2, W % 16 in {2, 8, 14}, bases offset by 1, 4 and 8 bytes,
-# all zero, every pixel at score 255 up to the 4095 coordinate limit
+# the pyramids; odd H, odd W, W = 2, W % 16 in {2, 8, 14}, bases offset by 1,
+# 4 and 8 bytes (the byte path), all zero, every pixel at score 255 up to the
+# 4095 coordinate limit
 @pytest.mark.parametrize("shape,offset,fill", [
+    ((64, 256), 0, None), ((61, 77), 0, None), ((800, 384), 0, None), ((2216, 640), 0, None),
     ((61, 64), 0, None), ((64, 61), 0, None), ((63, 2), 0, None), ((40, 130), 0, None),
     ((41, 136), 0, None), ((40, 142), 0, None), ((64, 256), 1, None), ((64, 256), 4, None),
     ((64, 256), 8, None), ((800, 384), 0, 0), ((4096, 4096), 0, 255), ((4095, 4095), 0, 255),
     ((4095, 4095), 1, 255)])
-def test_k6_edges(dev, shape, offset, fill):
+def test_k6(dev, shape, offset, fill):
     if fill is None:
-        rng = np.random.default_rng(shape[1] + offset)
-        scored = rng.integers(1, 256, shape, dtype=np.uint8)
-        scored[rng.random(shape) < 0.6] = 0
+        rng = np.random.default_rng(shape[0] + offset)
+        scored = np.zeros(shape, np.uint8)
+        n = max(shape[0] * shape[1] // 40, 1)
+        ys, xs = rng.integers(0, shape[0], n), rng.integers(0, shape[1], n)
+        scored[ys - ys % 2, xs - xs % 2] = rng.integers(1, 256, n)   # <= 1 per 2x2 block
     else:
         scored = np.full(shape, fill, np.uint8)
     x = _at_offset(scored, offset, dev)
@@ -456,7 +449,7 @@ def test_k3c(dev):
     ((4, 384), 0), ((4, 256), 0), ((64, 384), 1), ((64, 384), 8)])
 def test_k3a(dev, shape, offset):
     """The pyramids, W = 256 (one strip), 384 and 640, H = 4, and bases
-    offset by 1 and 8 bytes (the byte path)."""
+    offset by 1 byte (the byte path) and by 8."""
     img = _at_offset(image(*shape, 4), offset, dev)
     _same(kernels.pack_row_strips(img), kernels.pack_row_strips_plain(img))
     _same(kernels.pack_row_strips(img), kernels.pack_row_strips_plain(img.cpu()))

@@ -570,9 +570,9 @@ def k6_model(buf, off, h, w):
             a = top[:, k // 2] >> np.uint32(16 * (k % 2))
             b = bottom[:, k // 2] >> np.uint32(16 * (k % 2))
             x = x0 + 2 * k
-            code = np.maximum(np.maximum(_encode(a & 0xFF, x, y0), _encode((a >> 8) & 0xFF, x + 1, y0)),
-                              np.maximum(_encode(b & 0xFF, x, y0 + 1),
-                                         _encode((b >> 8) & 0xFF, x + 1, y0 + 1)))
+            code = np.maximum(
+                np.maximum(_encode(a & 0xFF, x, y0), _encode((a >> 8) & 0xFF, x + 1, y0)),
+                np.maximum(_encode(b & 0xFF, x, y0 + 1), _encode((b >> 8) & 0xFF, x + 1, y0 + 1)))
             out[r * w2 + x0 // 2 + k] = code
             np.add.at(writes, r * w2 + x0 // 2 + k, 1)
     else:
