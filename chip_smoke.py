@@ -436,7 +436,7 @@ def kernel_phase(dev, pyramids, cfgs):
             f"K3 {label}", flat, kernels.gather_windows_packed_plain(*args3)))
 
         tables = brief.OrbTables.build(dev)
-        for words in (fc.words, 4):
+        for words in range(1, 9):
             args4 = (flat, *tables, words)
             ang, desc = kernels.orb_select(*args4)
             pang, pdesc = kernels.orb_select_plain(*args4)
@@ -584,6 +584,20 @@ def kernel_phase(dev, pyramids, cfgs):
                              describe_bound(pyr, codes, valid, fd.angles, fc.words)),
         }
 
+    k3b_cases, k4_cases = k3b_edge_cases(dev), k4_edge_cases(dev)
+    for name, args in k3b_cases.items():
+        errs["gather_windows_packed"] = max(errs["gather_windows_packed"], require_equal(
+            f"K3 {name}", kernels.gather_windows_packed(*args),
+            kernels.gather_windows_packed_plain(*args)))
+    tables = brief.OrbTables.build(dev)
+    for name, (f, words) in k4_cases.items():
+        ang, desc = kernels.orb_select(f, *tables, words)
+        pang, pdesc = kernels.orb_select_plain(f, *tables, words)
+        errs["orb_select"] = max(errs["orb_select"],
+                                 require_equal(f"K4 {name} angles", ang, pang),
+                                 require_equal(f"K4 {name}", desc, pdesc))
+        if name.startswith("one bin") and torch.unique(ang).numel() != 1:
+            raise AssertionError(f"K4 {name}: more than one bin")
     k6_cases, k3a_cases = k6_edge_cases(dev), k3a_edge_cases(dev)
     for name, scored in k6_cases.items():
         errs["reduce_codes_4x"] = max(errs["reduce_codes_4x"], require_equal(
@@ -774,11 +788,13 @@ def strips_by_copy(img):
 
 
 def at_offset(a: np.ndarray, offset: int, dev):
-    """An (H, W) uint8 array as a contiguous view on dev that starts `offset`
-    bytes into a fresh buffer (whose own start the allocator aligns)."""
-    buf = torch.zeros(a.size + 16, dtype=torch.uint8, device=dev)
+    """A 2-D array of bytes (uint8 or int8) as a contiguous view on dev that
+    starts `offset` bytes into a fresh buffer (whose own start the allocator
+    aligns)."""
+    src = torch.from_numpy(a)
+    buf = torch.zeros(a.size + 16, dtype=src.dtype, device=dev)
     view = buf[offset:offset + a.size].view(a.shape)
-    view.copy_(torch.from_numpy(a))
+    view.copy_(src)
     return view
 
 
@@ -816,6 +832,57 @@ def k3a_edge_cases(dev) -> dict:
     for off in (1, 8):
         cases[f"base +{off} 64x384"] = at_offset(
             rng.integers(0, 256, (64, 384), np.uint8), off, dev)
+    return cases
+
+
+def k3b_edge_cases(dev) -> dict:
+    """K3b's edge inputs (image, xs, ys, valid): K = 1 (the bottom-right
+    corner), K = 8192, the 32x32 image, W % 4 in {1, 2, 3}, and the image
+    base offset by 1, 2 and 3 bytes. Each has keypoints on every clip limit
+    and at the four corners, and invalid ones with stale coordinates, among
+    seeded keypoints in and around the image: so windows start at every
+    byte alignment and reach the image's first and last bytes."""
+    rng = np.random.default_rng(15)
+
+    def keypoints(h, w, k):
+        ex = [w - 1, 0, 15, 16, w - 17, w - 16, w - 1, 0, w + 100, 3000, -5]
+        ey = [h - 1, 0, 15, h - 17, 16, h - 16, 0, h - 1, h + 100, -5, 4000]
+        ev = [True] * 9 + [False] * 2
+        xs = np.concatenate([ex, rng.integers(-20, w + 20, k)])[:k]
+        ys = np.concatenate([ey, rng.integers(-20, h + 20, k)])[:k]
+        valid = np.concatenate([ev, rng.random(k) < 0.8])[:k]
+        return (torch.as_tensor(xs.astype(np.int32), device=dev),
+                torch.as_tensor(ys.astype(np.int32), device=dev),
+                torch.as_tensor(valid, device=dev))
+
+    shapes = {"K=1": (64, 96, 1, 0), "K=8192": (480, 640, 8192, 0), "32x32": (32, 32, 40, 0),
+              "W%4=1": (61, 97, 300, 0), "W%4=2": (64, 98, 300, 0), "W%4=3": (67, 99, 300, 0),
+              "base+1": (64, 97, 300, 1), "base+2": (64, 98, 300, 2),
+              "base+3": (64, 99, 300, 3)}
+    return {f"{name} {h}x{w}": (at_offset(rng.integers(0, 256, (h, w), np.uint8), off, dev),
+                                *keypoints(h, w, k))
+            for name, (h, w, k, off) in shapes.items()}
+
+
+def k4_edge_cases(dev) -> dict:
+    """K4's edge inputs (windows, words): seeded windows at 1 to 8 words,
+    K = 1 and K = 8192, one window repeated 2048 times (every keypoint in
+    one bin), windows of all -128 and all 127, and windows whose base lies 1
+    and 4 bytes into a buffer (the byte path, and word loads off a 16-byte
+    boundary)."""
+    rng = np.random.default_rng(16)
+
+    def windows(k):
+        return rng.integers(-128, 128, (k, 1024)).astype(np.int8)
+
+    cases = {f"words={n}": (at_offset(windows(700), 0, dev), n) for n in range(1, 9)}
+    cases["K=1"] = (at_offset(windows(1), 0, dev), 8)
+    cases["K=8192"] = (at_offset(windows(8192), 0, dev), 8)
+    cases["one bin 2048"] = (at_offset(np.repeat(windows(1), 2048, 0), 0, dev), 8)
+    cases["all -128"] = (at_offset(np.full((64, 1024), -128, np.int8), 0, dev), 8)
+    cases["all 127"] = (at_offset(np.full((64, 1024), 127, np.int8), 0, dev), 8)
+    for off in (1, 4):
+        cases[f"base +{off}"] = (at_offset(windows(700), off, dev), 8)
     return cases
 
 

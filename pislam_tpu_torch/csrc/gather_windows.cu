@@ -3,48 +3,112 @@
 // Replaces pack_row_strips + the row take + realign_windows2d inside
 // gather_windows_packed (pislam_tpu/ops/pallas_kernels.py:73, :145, :195),
 // and the XOR to int8 after it (pislam_tpu/ops/patches.py:118). The 3-D
-// realign_windows (:172) gives the same bytes. The TPU needed strips and
-// lane rotates because any per-keypoint dynamic access cost it ~1.2 us; on
-// Hopper a direct gather through L1/L2 is the natural form.
+// realign_windows (:172) gives the same bytes.
 //
 // Window rows y-15..y+16, cols x-15..x+16. Byte (r, c) lands at
 // (r >> 2) * 128 + c * 4 + (r & 3): output word a*32 + c holds rows
-// 4a..4a+3 of column c, little-endian. One block per keypoint, one thread
-// per output word; a warp reads 32 neighbouring bytes of each of 4 rows.
-// Invalid keypoints go to (16, 16); every keypoint clips to
-// [15, w-17] x [15, h-17] (pallas_kernels.py:219-220).
+// 4a..4a+3 of column c, little-endian. Invalid keypoints go to (16, 16);
+// every keypoint clips to [15, w-17] x [15, h-17] (pallas_kernels.py:219-220).
+//
+// Sweep build: one warp per keypoint, kWarps keypoints per block; lanes read
+// columns (kRows false) or aligned row words (kRows true).
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+// the 4 image bytes at p as a little-endian word: two aligned words joined
+// by a funnel shift where both lie inside [lo, hi), else byte by byte
+__device__ __forceinline__ uint32_t row_word(const uint8_t* p, const uint8_t* lo,
+                                             const uint8_t* hi) {
+  const uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(u & ~uintptr_t(3));
+  if (reinterpret_cast<const uint8_t*>(a) >= lo && reinterpret_cast<const uint8_t*>(a + 2) <= hi)
+    return __funnelshift_r(__ldg(a), __ldg(a + 1), 8 * (uint32_t)(u & 3));
+  return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) |
+         ((uint32_t)p[3] << 24);
+}
+
+template <bool kRows, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 gather_windows_kernel(const uint8_t* __restrict__ img, int h, int w,
                       const int32_t* __restrict__ xs,
                       const int32_t* __restrict__ ys,
-                      const uint8_t* __restrict__ valid,
+                      const uint8_t* __restrict__ valid, int k,
                       uint32_t* __restrict__ out) {
-  const int kp = blockIdx.x;
-  const int t = threadIdx.x;
-  const bool v = valid[kp] != 0;
-  const int x = min(max(v ? xs[kp] : 16, 15), w - 17);
-  const int y = min(max(v ? ys[kp] : 16, 15), h - 17);
-  const int a = t >> 5, c = t & 31;
-  const uint8_t* p = img + (size_t)(y - 15 + 4 * a) * w + (x - 15 + c);
-  const uint32_t word = (uint32_t)p[0] | ((uint32_t)p[w] << 8) |
-                        ((uint32_t)p[2 * w] << 16) |
-                        ((uint32_t)p[3 * w] << 24);
-  out[(size_t)kp * 256 + t] = word ^ 0x80808080u;   // pixel - 128 as int8
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kp = blockIdx.x * kWarps + warp;
+  if (kp >= k) return;
+  // lanes 0, 1 and 2 read valid, x and y once; shuffles hand them out
+  int v = 0;
+  if (lane == 0) v = valid[kp];
+  else if (lane == 1) v = xs[kp];
+  else if (lane == 2) v = ys[kp];
+  const bool ok = __shfl_sync(kFullWarp, v, 0) != 0;
+  const int sx = __shfl_sync(kFullWarp, v, 1), sy = __shfl_sync(kFullWarp, v, 2);
+  const int x0 = min(max(ok ? sx : 16, 15), w - 17) - 15;
+  const int y0 = min(max(ok ? sy : 16, 15), h - 17) - 15;
+  uint32_t* o = out + (size_t)kp * 256;
+
+  if constexpr (!kRows) {
+    // lane c: column c, 32 byte loads at once, words c, 32 + c, ..., 224 + c
+    const uint8_t* col = img + (size_t)y0 * w + x0 + lane;
+    uint32_t win[8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const uint8_t* p = col + (size_t)(4 * a) * w;
+      win[a] = (uint32_t)p[0] | ((uint32_t)p[w] << 8) | ((uint32_t)p[2 * w] << 16) |
+               ((uint32_t)p[3 * w] << 24);
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a) o[a * 32 + lane] = win[a] ^ 0x80808080u;
+  } else {
+    // lane (g, q) = (lane >> 3, lane & 7): columns 4q..4q+3 of row groups g
+    // and g + 4, each a 4x4 byte block: 4 row words, transposed, one
+    // 16-byte store
+    const int q = lane & 7, g = lane >> 3;
+    const uint8_t* end = img + (size_t)h * w;
+    const uint8_t* base = img + (size_t)y0 * w + x0 + 4 * q;
+    uint32_t row[2][4];
+#pragma unroll
+    for (int it = 0; it < 2; ++it)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        row[it][i] = row_word(base + (size_t)(4 * (g + 4 * it) + i) * w, img, end) ^
+                     0x80808080u;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      // rows a, b, c, d -> columns: t0 = a0 b0 a1 b1, t1 = c0 d0 c1 d1,
+      // t2 = a2 b2 a3 b3, t3 = c2 d2 c3 d3 (bytes from the low end)
+      const uint32_t t0 = __byte_perm(row[it][0], row[it][1], 0x5140);
+      const uint32_t t1 = __byte_perm(row[it][2], row[it][3], 0x5140);
+      const uint32_t t2 = __byte_perm(row[it][0], row[it][1], 0x7362);
+      const uint32_t t3 = __byte_perm(row[it][2], row[it][3], 0x7362);
+      *reinterpret_cast<uint4*>(o + (g + 4 * it) * 32 + 4 * q) =
+          make_uint4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                     __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+    }
+  }
+}
+
+template <bool kRows, int kWarps>
+cudaError_t launch_gather_windows(const uint8_t* img, int h, int w, const int32_t* xs,
+                                  const int32_t* ys, const uint8_t* valid, int k,
+                                  uint32_t* out, cudaStream_t stream) {
+  if (k > 0)
+    gather_windows_kernel<kRows, kWarps><<<(k + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                                           stream>>>(img, h, w, xs, ys, valid, k, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// img (h, w) u8 with h, w >= 32; out (k, 1024), 16-byte aligned.
 PISLAM_API int pislam_gather_windows(const uint8_t* img, int h, int w,
                                      const int32_t* xs, const int32_t* ys,
                                      const uint8_t* valid, int k, int8_t* out,
                                      cudaStream_t stream) {
-  if (k > 0) {
-    gather_windows_kernel<<<k, 256, 0, stream>>>(
-        img, h, w, xs, ys, valid, reinterpret_cast<uint32_t*>(out));
-  }
-  return (int)cudaGetLastError();
+  if (h < 32 || w < 32 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_gather_windows<true, 4>(img, h, w, xs, ys, valid, k,
+                                             reinterpret_cast<uint32_t*>(out), stream);
 }

@@ -9,65 +9,172 @@
 // here bit i is the direct compare p[idx1[bin][i]] > p[idx0[bin][i]] (equal
 // indices give 0 either way).
 //
-// One block of 256 threads per keypoint: the window goes to shared memory,
-// each thread adds the moment products of 4 bytes (exact in int32), a warp
-// shuffle and shared-memory sum reduce them, thread 0 computes the bin, and
-// thread i computes bit i; a warp ballot packs word i / 32, bit i % 32. The
-// bin is common.cuh's FMA-free atan2_bin, shared with K4d.
+// Sweep build: one warp per keypoint, kWarps keypoints per block, the BRIEF
+// tables staged into shared memory by TMA (kStaged) or read through L1.
 #include "common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
-orb_select_kernel(const int8_t* __restrict__ flat,
+constexpr int kTable = 30 * 256;                 // int16 entries of idx0 or idx1
+constexpr int kTableBytes = kTable * 2;          // 15,360: a multiple of 16
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// the 4 bytes at p as a little-endian word
+__device__ __forceinline__ uint32_t bytes4(const int8_t* p, int stride) {
+  return (uint32_t)(uint8_t)p[0] | ((uint32_t)(uint8_t)p[stride] << 8) |
+         ((uint32_t)(uint8_t)p[2 * stride] << 16) | ((uint32_t)(uint8_t)p[3 * stride] << 24);
+}
+
+template <int kWarps, bool kStaged>
+struct SelectSmem {
+  uint32_t win[kWarps][256];
+};
+
+template <int kWarps>
+struct SelectSmem<kWarps, true> {
+  uint32_t win[kWarps][256];
+  __align__(16) int16_t tab[2 * kTable];
+  __align__(8) uint64_t bar;
+};
+
+template <int kWarps, bool kStaged, bool kVector>
+__global__ void __launch_bounds__(32 * kWarps)
+orb_select_kernel(const int8_t* __restrict__ flat, int k,
                   const int16_t* __restrict__ idx0,
                   const int16_t* __restrict__ idx1,
                   const int8_t* __restrict__ mom_w, int words,
                   uint8_t* __restrict__ angles, uint32_t* __restrict__ desc) {
-  __shared__ int32_t s_win[256];          // the 1024-byte window
-  __shared__ int32_t s_m10[8], s_m01[8];
-  __shared__ int s_bin;
-  const int kp = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
+  __shared__ SelectSmem<kWarps, kStaged> s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kp = blockIdx.x * kWarps + warp;
 
-  const int32_t word = reinterpret_cast<const int32_t*>(flat)[(size_t)kp * 256 + t];
-  s_win[t] = word;
+  if constexpr (kStaged) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(&s.bar)),
+                   "r"(1) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const uint32_t bar = smem_addr(&s.bar);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar), "r"(2 * kTableBytes) : "memory");
+      const int16_t* src[2] = {idx0, idx1};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];"
+            :: "r"(smem_addr(s.tab + i * kTable)),
+               "l"(reinterpret_cast<uint64_t>(src[i])), "r"(kTableBytes), "r"(bar)
+            : "memory");
+      }
+    }
+  }
+  if (kp >= k) {
+    if constexpr (kStaged) mbar_wait(&s.bar, 0);   // the bulk copies may still write
+    return;
+  }
+
+  // lane c holds packed words c, 32 + c, ..., 224 + c: rows 4a..4a+3 of
+  // column c; their (m10, m01) weights are 8 neighbouring bytes of mom_w
+  const int8_t* src = flat + (size_t)kp * 1024;
+  uint32_t win[8], wx[8], wy[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int i = a * 32 + lane;
+    if constexpr (kVector) {
+      win[a] = __ldg(reinterpret_cast<const uint32_t*>(src) + i);
+      const uint2 wt = __ldg(reinterpret_cast<const uint2*>(mom_w) + i);
+      wx[a] = __byte_perm(wt.x, wt.y, 0x6420);
+      wy[a] = __byte_perm(wt.x, wt.y, 0x7531);
+    } else {
+      win[a] = bytes4(src + 4 * i, 1);
+      wx[a] = bytes4(mom_w + 8 * i, 2);
+      wy[a] = bytes4(mom_w + 8 * i + 1, 2);
+    }
+  }
   int m10 = 0, m01 = 0;
 #pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int v = (int8_t)(word >> (8 * b));
-    const int i = 4 * t + b;
-    m10 += v * mom_w[2 * i];
-    m01 += v * mom_w[2 * i + 1];
+  for (int a = 0; a < 8; ++a) {
+    s.win[warp][a * 32 + lane] = win[a];
+    m10 = __dp4a((int)win[a], (int)wx[a], m10);
+    m01 = __dp4a((int)win[a], (int)wy[a], m01);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    m10 += __shfl_down_sync(kFullWarp, m10, off);
-    m01 += __shfl_down_sync(kFullWarp, m01, off);
+    m10 += __shfl_xor_sync(kFullWarp, m10, off);
+    m01 += __shfl_xor_sync(kFullWarp, m01, off);
   }
-  if (lane == 0) {
-    s_m10[warp] = m10;
-    s_m01[warp] = m01;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int x = 0, y = 0;
-    for (int i = 0; i < 8; ++i) {
-      x += s_m10[i];
-      y += s_m01[i];
-    }
-    const int bin = atan2_bin(x, y);
-    s_bin = bin;
-    angles[kp] = (uint8_t)bin;
-  }
-  __syncthreads();
+  const int bin = atan2_bin(m10, m01);
+  __syncwarp();
 
-  const int8_t* p = reinterpret_cast<const int8_t*>(s_win);
-  const int bin = s_bin;
-  const bool bit = p[idx1[bin * 256 + t]] > p[idx0[bin * 256 + t]];
-  const unsigned bits = __ballot_sync(kFullWarp, bit);
-  if (lane == 0 && warp < words) desc[(size_t)kp * words + warp] = bits;
+  int i0[8], i1[8];
+  if constexpr (kStaged) mbar_wait(&s.bar, 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < words) {
+      const int at = bin * 256 + 32 * j + lane;
+      if constexpr (kStaged) {
+        i0[j] = s.tab[at];
+        i1[j] = s.tab[kTable + at];
+      } else {
+        i0[j] = __ldg(idx0 + at);
+        i1[j] = __ldg(idx1 + at);
+      }
+    }
+  }
+  const int8_t* p = reinterpret_cast<const int8_t*>(s.win[warp]);
+  uint32_t mine = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < words) {
+      const unsigned bits = __ballot_sync(kFullWarp, p[i1[j]] > p[i0[j]]);
+      if (lane == j) mine = bits;
+    }
+  }
+  if (lane < words) desc[(size_t)kp * words + lane] = mine;
+  if (lane == 0) angles[kp] = (uint8_t)bin;
+}
+
+template <int kWarps, bool kStaged>
+cudaError_t launch_orb_select(const int8_t* flat, int k, const int16_t* idx0,
+                              const int16_t* idx1, const int8_t* mom_w, int words,
+                              uint8_t* angles, uint32_t* desc, cudaStream_t stream) {
+  if (k <= 0) return cudaGetLastError();
+  const dim3 grid((k + kWarps - 1) / kWarps), block(32 * kWarps);
+  // the tables reach shared memory by 16-byte bulk copies where they can
+  const bool staged = kStaged && reinterpret_cast<uintptr_t>(idx0) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(idx1) % 16 == 0;
+  const bool vector = reinterpret_cast<uintptr_t>(flat) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(mom_w) % 8 == 0;
+  if (staged && vector)
+    orb_select_kernel<kWarps, true, true><<<grid, block, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, desc);
+  else if (staged)
+    orb_select_kernel<kWarps, true, false><<<grid, block, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, desc);
+  else if (vector)
+    orb_select_kernel<kWarps, false, true><<<grid, block, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, desc);
+  else
+    orb_select_kernel<kWarps, false, false><<<grid, block, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, desc);
+  return cudaGetLastError();
 }
 
 __global__ void atan2_bins_kernel(const int32_t* __restrict__ m10,
@@ -83,12 +190,8 @@ PISLAM_API int pislam_orb_select(const int8_t* flat, int k, const int16_t* idx0,
                                  const int16_t* idx1, const int8_t* mom_w,
                                  int words, uint8_t* angles, int32_t* desc,
                                  cudaStream_t stream) {
-  if (k > 0) {
-    orb_select_kernel<<<k, 256, 0, stream>>>(flat, idx0, idx1, mom_w, words,
-                                             angles,
-                                             reinterpret_cast<uint32_t*>(desc));
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_orb_select<4, false>(flat, k, idx0, idx1, mom_w, words, angles,
+                                          reinterpret_cast<uint32_t*>(desc), stream);
 }
 
 PISLAM_API int pislam_atan2_bins(const int32_t* m10, const int32_t* m01, int n,

@@ -167,21 +167,64 @@ def test_k2_unaligned(dev, n, k):
     _same(kernels.topk_keys(shifted, k), kernels.topk_keys_plain(shifted, k))
 
 
-def test_k3(dev):
-    rng = np.random.default_rng(3)
-    img = t(image(200, 300, 3)).to(dev)
-    xs = t(rng.integers(-20, 320, 500).astype(np.int32)).to(dev)
-    ys = t(rng.integers(-20, 220, 500).astype(np.int32)).to(dev)
-    valid = t(rng.random(500) < 0.8).to(dev)
-    args = (img, xs, ys, valid)
+def _at_offset(a, offset, dev):
+    """a (bytes) on dev, `offset` bytes into a fresh buffer."""
+    buf = torch.zeros(a.size + 16, dtype=t(a).dtype, device=dev)
+    view = buf[offset:offset + a.size].view(a.shape)
+    view.copy_(t(a))
+    return view
+
+
+# (H, W), K, base offset: K = 1 (the bottom-right corner), K = 8192, the
+# 32x32 image, W % 4 in {1, 2, 3}, the base offset by 1, 2 and 3 bytes
+K3_CASES = {"200x300": ((200, 300), 500, 0), "K=1": ((64, 96), 1, 0),
+            "K=8192": ((480, 640), 8192, 0), "32x32": ((32, 32), 40, 0),
+            "W%4=1": ((61, 97), 300, 0), "W%4=2": ((64, 98), 300, 0),
+            "W%4=3": ((67, 99), 300, 0), "base+1": ((64, 97), 300, 1),
+            "base+2": ((64, 98), 300, 2), "base+3": ((64, 99), 300, 3)}
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k3(dev, case):
+    """The corners, every clip limit and invalid keypoints with stale
+    coordinates, then seeded keypoints in and around the image."""
+    (h, w), k, off = K3_CASES[case]
+    rng = np.random.default_rng(h + w + k + off)
+    ex = [w - 1, 0, 15, 16, w - 17, w - 16, w - 1, 0, w + 100, 3000, -5]
+    ey = [h - 1, 0, 15, h - 17, 16, h - 16, 0, h - 1, h + 100, -5, 4000]
+    xs = np.concatenate([ex, rng.integers(-20, w + 20, k)])[:k].astype(np.int32)
+    ys = np.concatenate([ey, rng.integers(-20, h + 20, k)])[:k].astype(np.int32)
+    valid = np.concatenate([[True] * 9 + [False] * 2, rng.random(k) < 0.8])[:k]
+    args = (_at_offset(image(h, w, k), off, dev), t(xs).to(dev), t(ys).to(dev),
+            t(valid).to(dev))
+    assert args[0].data_ptr() % 4 == off
     _same(kernels.gather_windows_packed(*args), kernels.gather_windows_packed_plain(*args))
 
 
-@pytest.mark.parametrize("words", [8, 4, 1])
-def test_k4(dev, words):
-    flat = t(np.random.default_rng(words).integers(-128, 128, (700, 1024)).astype(np.int8))
-    args = (flat.to(dev), *brief.OrbTables.build(dev), words)
-    _same(kernels.orb_select(*args), kernels.orb_select_plain(*args))
+# K, words, base offset, windows: 1 to 8 words, K = 1 and 8192, one window
+# repeated (one bin), all -128 and all 127, the base offset by 1 and 4 bytes
+K4_CASES = {**{f"words={n}": (700, n, 0, "random") for n in range(1, 9)},
+            "K=1": (1, 8, 0, "random"), "K=8192": (8192, 8, 0, "random"),
+            "one bin": (2048, 8, 0, "one"), "all -128": (64, 8, 0, -128),
+            "all 127": (64, 8, 0, 127), "base+1": (700, 8, 1, "random"),
+            "base+4": (700, 8, 4, "random")}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4(dev, case):
+    k, words, off, fill = K4_CASES[case]
+    rng = np.random.default_rng(k + words + off)
+    if fill == "random":
+        flat = rng.integers(-128, 128, (k, 1024)).astype(np.int8)
+    elif fill == "one":
+        flat = np.repeat(rng.integers(-128, 128, (1, 1024)).astype(np.int8), k, 0)
+    else:
+        flat = np.full((k, 1024), fill, np.int8)
+    args = (_at_offset(flat, off, dev), *brief.OrbTables.build(dev), words)
+    got = kernels.orb_select(*args)
+    _same(got, kernels.orb_select_plain(*args))
+    if fill != "random":
+        assert torch.unique(got[0]).numel() == 1
 
 
 def _describe_case(shape, k, seed, dev):
