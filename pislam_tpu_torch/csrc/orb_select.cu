@@ -51,7 +51,7 @@ struct SelectSmem<kWarps, true> {
   __align__(8) uint64_t bar;
 };
 
-template <int kWarps, bool kStaged, bool kVector>
+template <int kWarps, bool kStaged, bool kRedux, bool kVector>
 __global__ void __launch_bounds__(32 * kWarps)
 orb_select_kernel(const int8_t* __restrict__ flat, int k,
                   const int16_t* __restrict__ idx0,
@@ -115,43 +115,48 @@ orb_select_kernel(const int8_t* __restrict__ flat, int k,
     m10 = __dp4a((int)win[a], (int)wx[a], m10);
     m01 = __dp4a((int)win[a], (int)wy[a], m01);
   }
+  if constexpr (kRedux) {
+    m10 = (int)__reduce_add_sync(kFullWarp, (unsigned)m10);
+    m01 = (int)__reduce_add_sync(kFullWarp, (unsigned)m01);
+  } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    m10 += __shfl_xor_sync(kFullWarp, m10, off);
-    m01 += __shfl_xor_sync(kFullWarp, m01, off);
+    for (int off = 16; off > 0; off >>= 1) {
+      m10 += __shfl_xor_sync(kFullWarp, m10, off);
+      m01 += __shfl_xor_sync(kFullWarp, m01, off);
+    }
   }
   const int bin = atan2_bin(m10, m01);
   __syncwarp();
 
+  // all 8 words, whatever `words` is: no branch keeps the loads apart
   int i0[8], i1[8];
   if constexpr (kStaged) mbar_wait(&s.bar, 0);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    if (j < words) {
-      const int at = bin * 256 + 32 * j + lane;
-      if constexpr (kStaged) {
-        i0[j] = s.tab[at];
-        i1[j] = s.tab[kTable + at];
-      } else {
-        i0[j] = __ldg(idx0 + at);
-        i1[j] = __ldg(idx1 + at);
-      }
+    const int at = bin * 256 + 32 * j + lane;
+    if constexpr (kStaged) {
+      i0[j] = s.tab[at];
+      i1[j] = s.tab[kTable + at];
+    } else {
+      i0[j] = __ldg(idx0 + at);
+      i1[j] = __ldg(idx1 + at);
     }
   }
   const int8_t* p = reinterpret_cast<const int8_t*>(s.win[warp]);
+  bool gt[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) gt[j] = p[i1[j]] > p[i0[j]];
   uint32_t mine = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    if (j < words) {
-      const unsigned bits = __ballot_sync(kFullWarp, p[i1[j]] > p[i0[j]]);
-      if (lane == j) mine = bits;
-    }
+    const unsigned bits = __ballot_sync(kFullWarp, gt[j]);
+    if (lane == j) mine = bits;
   }
   if (lane < words) desc[(size_t)kp * words + lane] = mine;
   if (lane == 0) angles[kp] = (uint8_t)bin;
 }
 
-template <int kWarps, bool kStaged>
+template <int kWarps, bool kStaged, bool kRedux>
 cudaError_t launch_orb_select(const int8_t* flat, int k, const int16_t* idx0,
                               const int16_t* idx1, const int8_t* mom_w, int words,
                               uint8_t* angles, uint32_t* desc, cudaStream_t stream) {
@@ -163,16 +168,16 @@ cudaError_t launch_orb_select(const int8_t* flat, int k, const int16_t* idx0,
   const bool vector = reinterpret_cast<uintptr_t>(flat) % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(mom_w) % 8 == 0;
   if (staged && vector)
-    orb_select_kernel<kWarps, true, true><<<grid, block, 0, stream>>>(
+    orb_select_kernel<kWarps, true, kRedux, true><<<grid, block, 0, stream>>>(
         flat, k, idx0, idx1, mom_w, words, angles, desc);
   else if (staged)
-    orb_select_kernel<kWarps, true, false><<<grid, block, 0, stream>>>(
+    orb_select_kernel<kWarps, true, kRedux, false><<<grid, block, 0, stream>>>(
         flat, k, idx0, idx1, mom_w, words, angles, desc);
   else if (vector)
-    orb_select_kernel<kWarps, false, true><<<grid, block, 0, stream>>>(
+    orb_select_kernel<kWarps, false, kRedux, true><<<grid, block, 0, stream>>>(
         flat, k, idx0, idx1, mom_w, words, angles, desc);
   else
-    orb_select_kernel<kWarps, false, false><<<grid, block, 0, stream>>>(
+    orb_select_kernel<kWarps, false, kRedux, false><<<grid, block, 0, stream>>>(
         flat, k, idx0, idx1, mom_w, words, angles, desc);
   return cudaGetLastError();
 }
@@ -190,7 +195,7 @@ PISLAM_API int pislam_orb_select(const int8_t* flat, int k, const int16_t* idx0,
                                  const int16_t* idx1, const int8_t* mom_w,
                                  int words, uint8_t* angles, int32_t* desc,
                                  cudaStream_t stream) {
-  return (int)launch_orb_select<4, false>(flat, k, idx0, idx1, mom_w, words, angles,
+  return (int)launch_orb_select<8, true, true>(flat, k, idx0, idx1, mom_w, words, angles,
                                           reinterpret_cast<uint32_t*>(desc), stream);
 }
 

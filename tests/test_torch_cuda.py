@@ -167,14 +167,6 @@ def test_k2_unaligned(dev, n, k):
     _same(kernels.topk_keys(shifted, k), kernels.topk_keys_plain(shifted, k))
 
 
-def _at_offset(a, offset, dev):
-    """a (bytes) on dev, `offset` bytes into a fresh buffer."""
-    buf = torch.zeros(a.size + 16, dtype=t(a).dtype, device=dev)
-    view = buf[offset:offset + a.size].view(a.shape)
-    view.copy_(t(a))
-    return view
-
-
 # (H, W), K, base offset: K = 1 (the bottom-right corner), K = 8192, the
 # 32x32 image, W % 4 in {1, 2, 3}, the base offset by 1, 2 and 3 bytes
 K3_CASES = {"200x300": ((200, 300), 500, 0), "K=1": ((64, 96), 1, 0),
@@ -381,9 +373,10 @@ def test_frontend_on_card_matches_cpu(dev):
 
 
 def _at_offset(a, offset, dev):
-    """a as a contiguous view on dev that starts `offset` bytes into an
-    (aligned) buffer: a misaligned base for the kernels' byte paths."""
-    buf = torch.zeros(a.size + 16, dtype=torch.uint8, device=dev)
+    """a (uint8 or int8) as a contiguous view on dev that starts `offset`
+    bytes into an (aligned) buffer: a misaligned base for the kernels' byte
+    paths."""
+    buf = torch.zeros(a.size + 16, dtype=t(a).dtype, device=dev)
     view = buf[offset:offset + a.size].view(a.shape)
     view.copy_(t(a))
     return view

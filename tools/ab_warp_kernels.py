@@ -44,18 +44,21 @@ import chip_smoke as cs  # noqa: E402
 from pislam_tpu_torch.ops import _build, brief, kernels  # noqa: E402
 
 REPS = 50
-WARPS = (1, 2, 4, 8)
-K3B_BUILDS = [(kind, n) for kind in ("rows", "columns") for n in WARPS]
-K4_BUILDS = [(kind, n) for kind in ("ldg", "tma") for n in WARPS]
-K3B_ENTRY = ("PISLAM_API int sweep_gather_windows_{kind}_{n}(const uint8_t* img, int h, "
-             "int w, const int32_t* xs, const int32_t* ys, const uint8_t* valid, int k, "
-             "int8_t* out, cudaStream_t s) {{ return (int)launch_gather_windows<{tpl}, {n}>("
-             "img, h, w, xs, ys, valid, k, reinterpret_cast<uint32_t*>(out), s); }}")
-K4_ENTRY = ("PISLAM_API int sweep_orb_select_{kind}_{n}(const int8_t* flat, int k, "
+WARPS = (2, 4, 8, 16)
+K3B_BUILDS = ([("columns", split, n, hdr) for split in (1, 2, 4) for n in (4, 8, 16)
+               for hdr in ("shfl", "all")]
+              + [("rows", split, n, "all") for split in (1, 2) for n in (4, 8)])
+K4_BUILDS = [(kind, "redux", n) for kind in ("ldg", "tma") for n in WARPS]
+K3B_ENTRY = ("PISLAM_API int sweep_gather_windows_{kind}_{split}_{n}_{hdr}(const uint8_t* "
+             "img, int h, int w, const int32_t* xs, const int32_t* ys, const uint8_t* valid, "
+             "int k, int8_t* out, cudaStream_t s) {{ return (int)launch_gather_windows<"
+             "{tpl}, {n}, {split}, {htpl}>(img, h, w, xs, ys, valid, k, "
+             "reinterpret_cast<uint32_t*>(out), s); }}")
+K4_ENTRY = ("PISLAM_API int sweep_orb_select_{kind}_{red}_{n}(const int8_t* flat, int k, "
             "const int16_t* i0, const int16_t* i1, const int8_t* mw, int words, "
             "uint8_t* ang, int32_t* desc, cudaStream_t s) {{ return (int)launch_orb_select<"
-            "{n}, {tpl}>(flat, k, i0, i1, mw, words, ang, reinterpret_cast<uint32_t*>(desc), "
-            "s); }}")
+            "{n}, {tpl}, {rtpl}>(flat, k, i0, i1, mw, words, ang, "
+            "reinterpret_cast<uint32_t*>(desc), s); }}")
 
 
 def build_library(name: str, sources: list[Path], include: Path) -> ctypes.CDLL:
@@ -87,11 +90,14 @@ def sweep_sources() -> list[Path]:
     out = _build.BUILD_DIR / "ab" / "src"
     out.mkdir(parents=True, exist_ok=True)
     k3b = ['#include "gather_windows.cu"'] + [
-        K3B_ENTRY.format(kind=kind, n=n, tpl="true" if kind == "rows" else "false")
-        for kind, n in K3B_BUILDS]
+        K3B_ENTRY.format(kind=kind, split=split, n=n, hdr=hdr,
+                         tpl="true" if kind == "rows" else "false",
+                         htpl="true" if hdr == "shfl" else "false")
+        for kind, split, n, hdr in K3B_BUILDS]
     k4 = ['#include "orb_select.cu"'] + [
-        K4_ENTRY.format(kind=kind, n=n, tpl="true" if kind == "tma" else "false")
-        for kind, n in K4_BUILDS]
+        K4_ENTRY.format(kind=kind, red=red, n=n, tpl="true" if kind == "tma" else "false",
+                        rtpl="true" if red == "redux" else "false")
+        for kind, red, n in K4_BUILDS]
     paths = [out / "sweep_gather_windows.cu", out / "sweep_orb_select.cu"]
     for path, lines in zip(paths, (k3b, k4)):
         path.write_text("\n".join(lines) + "\n")
@@ -192,11 +198,14 @@ def main():
     kinds = {"gather_windows_packed": (
                  k3b_in, {**k3b_in, **cs.k3b_edge_cases(dev)}, k3b_runner, k3b_out,
                  kernels.gather_windows_packed_plain, "pislam_gather_windows",
-                 {f"{kind} x{n}": f"sweep_gather_windows_{kind}_{n}" for kind, n in K3B_BUILDS}),
+                 {f"{kind} {split} warp(s) a keypoint, {n} a block, header {hdr}":
+                  f"sweep_gather_windows_{kind}_{split}_{n}_{hdr}"
+                  for kind, split, n, hdr in K3B_BUILDS}),
              "orb_select": (
                  k4_in, {**k4_in, **k4_cases}, k4_runner, k4_out, kernels.orb_select_plain,
                  "pislam_orb_select",
-                 {f"{kind} x{n}": f"sweep_orb_select_{kind}_{n}" for kind, n in K4_BUILDS})}
+                 {f"{kind} {red} x{n}": f"sweep_orb_select_{kind}_{red}_{n}"
+                  for kind, red, n in K4_BUILDS})}
     result = {"card": card, "reps": REPS, "ab": {}, "sweep": {}}
     empty_us = cs.device_us(lambda: kernels.empty_launch(dev), REPS)[0]
     result["empty_us"] = empty_us
