@@ -33,7 +33,11 @@ prints no result line):
    rows (also against K3's bytes), K3a on each pyramid (also against its
    library copy, chip_smoke.strips_by_copy); K6 and K3a on their edge cases
    (k6_edge_cases, k3a_edge_cases: odd and ragged shapes, bases offset by 1,
-   4 and 8 bytes, all zero, score 255 at the 4095 coordinate limit); K5 (ungated and
+   4 and 8 bytes, all zero, score 255 at the 4095 coordinate limit); K3
+   (K3b) and K4 on theirs (k3b_edge_cases, k4_edge_cases: K = 1 and 8192,
+   the 32x32 image, W % 4 in {1, 2, 3}, image and window bases offset by
+   1-4 bytes, tables off their alignment, 1 to 8 words, one bin, windows
+   of all -128 and all 127); K5 (ungated and
    gated) bit-exact at (512, 512) from eval features, (2048, 2048) from VGA
    features, (2048, 16384) tiled as tools/ab_match.py tiles it, and gated
    with radius 0.06 at (512, 8192), the map-tracking shape, and (512,
@@ -589,10 +593,9 @@ def kernel_phase(dev, pyramids, cfgs):
         errs["gather_windows_packed"] = max(errs["gather_windows_packed"], require_equal(
             f"K3 {name}", kernels.gather_windows_packed(*args),
             kernels.gather_windows_packed_plain(*args)))
-    tables = brief.OrbTables.build(dev)
-    for name, (f, words) in k4_cases.items():
-        ang, desc = kernels.orb_select(f, *tables, words)
-        pang, pdesc = kernels.orb_select_plain(f, *tables, words)
+    for name, args in k4_cases.items():
+        ang, desc = kernels.orb_select(*args)
+        pang, pdesc = kernels.orb_select_plain(*args)
         errs["orb_select"] = max(errs["orb_select"],
                                  require_equal(f"K4 {name} angles", ang, pang),
                                  require_equal(f"K4 {name}", desc, pdesc))
@@ -623,9 +626,11 @@ def kernel_phase(dev, pyramids, cfgs):
           f"cases, 2048, 8192, one bin at 2048 and 8192, a random gm; also against "
           f"orb_describe), K3c (2048 "
           f"keypoints, also against K3's bytes) and K3a (also against its library copy) "
-          f"bit-exact (tolerance 0) on VGA and eval shapes; K6 on {len(k6_cases)} "
-          f"and K3a on {len(k3a_cases)} edge cases (odd and ragged shapes, "
-          f"misaligned bases, ties at the coordinate limit) bit-exact; atan2 sweep of "
+          f"bit-exact (tolerance 0) on VGA and eval shapes; K6 on {len(k6_cases)}, "
+          f"K3a on {len(k3a_cases)}, K3 on {len(k3b_cases)} and K4 on {len(k4_cases)} "
+          f"edge cases (odd and ragged shapes, misaligned bases and tables, ties at the "
+          f"coordinate limit, K = 1 and 8192, 1 to 8 words, one bin) bit-exact; atan2 "
+          f"sweep of "
           f"{m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
 
@@ -865,24 +870,37 @@ def k3b_edge_cases(dev) -> dict:
 
 
 def k4_edge_cases(dev) -> dict:
-    """K4's edge inputs (windows, words): seeded windows at 1 to 8 words,
-    K = 1 and K = 8192, one window repeated 2048 times (every keypoint in
-    one bin), windows of all -128 and all 127, and windows whose base lies 1
-    and 4 bytes into a buffer (the byte path, and word loads off a 16-byte
-    boundary)."""
+    """K4's edge inputs (windows, idx0, idx1, mom_w, words): seeded windows
+    at 1 to 8 words, K = 1 and K = 8192, one window repeated 2048 times
+    (every keypoint in one bin), windows of all -128 and all 127, windows
+    whose base lies 1 and 4 bytes into a buffer (the byte path, and word
+    loads off a 16-byte boundary), and the tables 2 bytes (idx0, idx1) and 1
+    byte (mom_w) into theirs (the tables read through L1, the weights byte
+    by byte)."""
+    from pislam_tpu_torch.ops import brief
     rng = np.random.default_rng(16)
+    tables = brief.OrbTables.build(dev)
 
     def windows(k):
         return rng.integers(-128, 128, (k, 1024)).astype(np.int8)
 
-    cases = {f"words={n}": (at_offset(windows(700), 0, dev), n) for n in range(1, 9)}
-    cases["K=1"] = (at_offset(windows(1), 0, dev), 8)
-    cases["K=8192"] = (at_offset(windows(8192), 0, dev), 8)
-    cases["one bin 2048"] = (at_offset(np.repeat(windows(1), 2048, 0), 0, dev), 8)
-    cases["all -128"] = (at_offset(np.full((64, 1024), -128, np.int8), 0, dev), 8)
-    cases["all 127"] = (at_offset(np.full((64, 1024), 127, np.int8), 0, dev), 8)
+    def offset(t, nbytes):
+        buf = torch.zeros(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=dev)
+        view = buf[nbytes:nbytes + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+        view.copy_(t)
+        return view
+
+    cases = {f"words={n}": (at_offset(windows(700), 0, dev), *tables, n)
+             for n in range(1, 9)}
+    for name, flat in {"K=1": windows(1), "K=8192": windows(8192),
+                       "one bin 2048": np.repeat(windows(1), 2048, 0),
+                       "all -128": np.full((64, 1024), -128, np.int8),
+                       "all 127": np.full((64, 1024), 127, np.int8)}.items():
+        cases[name] = (at_offset(flat, 0, dev), *tables, 8)
     for off in (1, 4):
-        cases[f"base +{off}"] = (at_offset(windows(700), off, dev), 8)
+        cases[f"base +{off}"] = (at_offset(windows(700), off, dev), *tables, 8)
+    cases["tables +2, mom_w +1"] = (at_offset(windows(700), 0, dev), offset(tables.idx0, 2),
+                                    offset(tables.idx1, 2), offset(tables.mom_w, 1), 8)
     return cases
 
 

@@ -3,25 +3,54 @@
 // Replaces pack_row_strips + the row take + realign_windows2d inside
 // gather_windows_packed (pislam_tpu/ops/pallas_kernels.py:73, :145, :195),
 // and the XOR to int8 after it (pislam_tpu/ops/patches.py:118). The 3-D
-// realign_windows (:172) gives the same bytes.
+// realign_windows (:172) gives the same bytes. The TPU needed strips and
+// lane rotates because any per-keypoint dynamic access cost it ~1.2 us; on
+// Hopper a direct gather through L1/L2 is the natural form.
 //
 // Window rows y-15..y+16, cols x-15..x+16. Byte (r, c) lands at
 // (r >> 2) * 128 + c * 4 + (r & 3): output word a*32 + c holds rows
 // 4a..4a+3 of column c, little-endian. Invalid keypoints go to (16, 16);
 // every keypoint clips to [15, w-17] x [15, h-17] (pallas_kernels.py:219-220).
 //
-// Sweep build: one warp per keypoint, kWarps keypoints per block; lanes read
-// columns (kRows false) or aligned row words (kRows true).
+// Bound: bytes, 1 KB written a keypoint (and the window's bytes, from L2);
+// what costs is two dependent trips, the keypoint's coordinates and then
+// its window, and the stores. Design: two warps a keypoint, four keypoints
+// (256 threads) a block. Every lane loads the keypoint's x, y and valid
+// (one request each for the warp: no shuffle, no lane branch, which cost
+// ~0.2 us more); lane c of half h then issues its 16 byte loads of column
+// c, rows 16h..16h+15, at once and stores words a*32 + c for its 4 row
+// groups, a warp's store a whole 128-byte line. A byte load needs no
+// alignment, so any image base, width and window origin take the same
+// path. Of one or two warps a keypoint reading columns, or four, or lanes
+// reading aligned row words joined by funnel shifts and transposed by byte
+// permutes, at 2 to 16 warps a block, this was the fastest at eval among
+// the builds within 10 % of the fastest at VGA (PERF.md §6): with one warp,
+// ptxas issues a lane's 32 loads in two batches, two trips, and the row
+// words cost more instructions than they save.
 #include "common.cuh"
 
 namespace {
 
-// lane c of the kGroups row groups from a0: column c, its byte loads at
-// once, words a * 32 + c
-template <int kGroups>
-__device__ __forceinline__ void gather_columns(const uint8_t* __restrict__ img, int w,
-                                               int x0, int y0, int a0, int lane,
-                                               uint32_t* __restrict__ o) {
+constexpr int kSplit = 2;                        // warps a keypoint
+constexpr int kPerBlock = 4;                     // keypoints a block
+constexpr int kGroups = 8 / kSplit;              // 4-row groups a warp
+
+__global__ void __launch_bounds__(32 * kSplit * kPerBlock)
+gather_windows_kernel(const uint8_t* __restrict__ img, int h, int w,
+                      const int32_t* __restrict__ xs,
+                      const int32_t* __restrict__ ys,
+                      const uint8_t* __restrict__ valid, int k,
+                      uint32_t* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kp = blockIdx.x * kPerBlock + warp / kSplit;
+  const int a0 = warp % kSplit * kGroups;
+  if (kp >= k) return;
+  // three loads issued together: none waits on valid
+  const bool ok = valid[kp] != 0;
+  const int sx = xs[kp], sy = ys[kp];
+  const int x0 = min(max(ok ? sx : 16, 15), w - 17) - 15;
+  const int y0 = min(max(ok ? sy : 16, 15), h - 17) - 15;
+
   const uint8_t* col = img + (size_t)(y0 + 4 * a0) * w + x0 + lane;
   uint32_t win[kGroups];
 #pragma unroll
@@ -30,114 +59,23 @@ __device__ __forceinline__ void gather_columns(const uint8_t* __restrict__ img, 
     win[a] = (uint32_t)p[0] | ((uint32_t)p[w] << 8) | ((uint32_t)p[2 * w] << 16) |
              ((uint32_t)p[3 * w] << 24);
   }
+  uint32_t* o = out + (size_t)kp * 256 + a0 * 32 + lane;
 #pragma unroll
-  for (int a = 0; a < kGroups; ++a) o[(a0 + a) * 32 + lane] = win[a] ^ 0x80808080u;
-}
-
-template <bool kRows, int kWarps, int kSplit, bool kShuffle>
-__global__ void __launch_bounds__(32 * kWarps)
-gather_windows_kernel(const uint8_t* __restrict__ img, int h, int w,
-                      const int32_t* __restrict__ xs,
-                      const int32_t* __restrict__ ys,
-                      const uint8_t* __restrict__ valid, int k,
-                      uint32_t* __restrict__ out) {
-  constexpr int kGroups = 8 / kSplit;            // row groups of a warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kp = blockIdx.x * (kWarps / kSplit) + warp / kSplit;
-  const int a0 = warp % kSplit * kGroups;
-  if (kp >= k) return;
-  bool ok;
-  int sx, sy;
-  if constexpr (kShuffle) {
-    // lanes 0, 1 and 2 read valid, x and y once; shuffles hand them out
-    int v = 0;
-    if (lane == 0) v = valid[kp];
-    else if (lane == 1) v = xs[kp];
-    else if (lane == 2) v = ys[kp];
-    ok = __shfl_sync(kFullWarp, v, 0) != 0;
-    sx = __shfl_sync(kFullWarp, v, 1);
-    sy = __shfl_sync(kFullWarp, v, 2);
-  } else {
-    // every lane loads the same three words: one request each for the warp
-    ok = valid[kp] != 0;
-    sx = xs[kp];
-    sy = ys[kp];
-  }
-  const int x0 = min(max(ok ? sx : 16, 15), w - 17) - 15;
-  const int y0 = min(max(ok ? sy : 16, 15), h - 17) - 15;
-  uint32_t* o = out + (size_t)kp * 256;
-
-  if constexpr (!kRows) {
-    gather_columns<kGroups>(img, w, x0, y0, a0, lane, o);
-  } else {
-    // lane (g, q) = (lane >> 3, lane & 7): columns 4q..4q+3 of row groups
-    // a0 + g (+ 4), each a 4x4 byte block: 4 row words, each two aligned
-    // words joined by a funnel shift, transposed, one 16-byte store. Where
-    // the window's aligned words do not all lie inside the image (the whole
-    // warp decides), the columns' byte loads instead.
-    const uint8_t* first = img + (size_t)y0 * w + x0;
-    const uintptr_t lo = reinterpret_cast<uintptr_t>(first) & ~uintptr_t(3);
-    const uintptr_t hi = (reinterpret_cast<uintptr_t>(first + (size_t)31 * w + 28) &
-                          ~uintptr_t(3)) + 8;
-    if (lo < reinterpret_cast<uintptr_t>(img) ||
-        hi > reinterpret_cast<uintptr_t>(img + (size_t)h * w)) {
-      gather_columns<kGroups>(img, w, x0, y0, a0, lane, o);
-      return;
-    }
-    constexpr int kTiles = kGroups / 4;
-    const int q = lane & 7, g = lane >> 3;
-    uint32_t lw[kTiles][4], hw[kTiles][4], sh[kTiles][4];
-#pragma unroll
-    for (int it = 0; it < kTiles; ++it)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uintptr_t u = reinterpret_cast<uintptr_t>(
-            first + (size_t)(4 * (a0 + g + 4 * it) + i) * w + 4 * q);
-        const uint32_t* a = reinterpret_cast<const uint32_t*>(u & ~uintptr_t(3));
-        lw[it][i] = __ldg(a);
-        hw[it][i] = __ldg(a + 1);
-        sh[it][i] = 8 * (uint32_t)(u & 3);
-      }
-#pragma unroll
-    for (int it = 0; it < kTiles; ++it) {
-      uint32_t r[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = __funnelshift_r(lw[it][i], hw[it][i], sh[it][i]) ^ 0x80808080u;
-      // rows a, b, c, d -> columns: t0 = a0 b0 a1 b1, t1 = c0 d0 c1 d1,
-      // t2 = a2 b2 a3 b3, t3 = c2 d2 c3 d3 (bytes from the low end)
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-      const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-      const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-      *reinterpret_cast<uint4*>(o + (a0 + g + 4 * it) * 32 + 4 * q) =
-          make_uint4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                     __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
-    }
-  }
-}
-
-template <bool kRows, int kWarps, int kSplit, bool kShuffle>
-cudaError_t launch_gather_windows(const uint8_t* img, int h, int w, const int32_t* xs,
-                                  const int32_t* ys, const uint8_t* valid, int k,
-                                  uint32_t* out, cudaStream_t stream) {
-  constexpr int kPerBlock = kWarps / kSplit;
-  if (k > 0)
-    gather_windows_kernel<kRows, kWarps, kSplit, kShuffle>
-        <<<(k + kPerBlock - 1) / kPerBlock, 32 * kWarps, 0, stream>>>(img, h, w, xs, ys,
-                                                                       valid, k, out);
-  return cudaGetLastError();
+  for (int a = 0; a < kGroups; ++a) o[a * 32] = win[a] ^ 0x80808080u;   // pixel - 128
 }
 
 }  // namespace
 
-// img (h, w) u8 with h, w >= 32; out (k, 1024), 16-byte aligned.
+// img (h, w) u8 with h, w >= 32; out (k, 1024).
 PISLAM_API int pislam_gather_windows(const uint8_t* img, int h, int w,
                                      const int32_t* xs, const int32_t* ys,
                                      const uint8_t* valid, int k, int8_t* out,
                                      cudaStream_t stream) {
-  if (h < 32 || w < 32 || reinterpret_cast<uintptr_t>(out) % 16)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_gather_windows<false, 4, 2, false>(img, h, w, xs, ys, valid, k,
-                                             reinterpret_cast<uint32_t*>(out), stream);
+  if (h < 32 || w < 32) return (int)cudaErrorInvalidValue;
+  if (k > 0) {
+    gather_windows_kernel<<<(k + kPerBlock - 1) / kPerBlock, 32 * kSplit * kPerBlock, 0,
+                            stream>>>(img, h, w, xs, ys, valid, k,
+                                      reinterpret_cast<uint32_t*>(out));
+  }
+  return (int)cudaGetLastError();
 }

@@ -9,12 +9,31 @@
 // here bit i is the direct compare p[idx1[bin][i]] > p[idx0[bin][i]] (equal
 // indices give 0 either way).
 //
-// Sweep build: one warp per keypoint, kWarps keypoints per block, the BRIEF
-// tables staged into shared memory by TMA (kStaged) or read through L1.
+// Bound: bytes, the windows (1 KB a keypoint) and the 32 KB of tables read
+// once, at most ~0.17 us at 512 keypoints; the windows sit in L2, so what
+// costs is the chain of dependent steps in each keypoint. Design:
+// orb_describe's second half, one warp per keypoint and no block-wide
+// barrier between the window load and the descriptor store. Lane c loads
+// packed words c, 32 + c, ..., 224 + c (a 128-byte line per warp load) and
+// the 8 mom_w bytes beside each, multiplies them by dp4a, and one redux
+// per moment gives every lane both sums, so every lane computes
+// common.cuh's atan2_bin itself. The window goes to a 1 KB shared slot of
+// the warp for the random-access compares: lane l compares pairs l + 32 j
+// of all 8 words at once (no branch on `words` keeps their loads apart),
+// one ballot per word, and lane j stores word j for j < words. The 30 KB of
+// idx0/idx1 reach the block's shared memory by two bulk copies (TMA) on an
+// mbarrier while the windows load; the block's one __syncthreads, before
+// any load, publishes the barrier's initialisation. Four keypoints a block:
+// of 2, 4, 8 and 16, tables staged or read through L1, this was the fastest
+// at eval among the builds within 10 % of the fastest at VGA (PERF.md §6).
+// Where idx0 or idx1 is not 16-byte aligned the same launch reads the tables
+// through L1; where the windows are not 4-byte aligned or mom_w not 8-byte
+// aligned, it loads them byte by byte.
 #include "common.cuh"
 
 namespace {
 
+constexpr int kWarps = 4;                        // keypoints per block
 constexpr int kTable = 30 * 256;                 // int16 entries of idx0 or idx1
 constexpr int kTableBytes = kTable * 2;          // 15,360: a multiple of 16
 
@@ -33,32 +52,33 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// the 4 bytes at p as a little-endian word
+// the 4 bytes at p, p + stride, p + 2 stride, p + 3 stride as a
+// little-endian word
 __device__ __forceinline__ uint32_t bytes4(const int8_t* p, int stride) {
   return (uint32_t)(uint8_t)p[0] | ((uint32_t)(uint8_t)p[stride] << 8) |
          ((uint32_t)(uint8_t)p[2 * stride] << 16) | ((uint32_t)(uint8_t)p[3 * stride] << 24);
 }
 
-template <int kWarps, bool kStaged>
+template <bool kStaged>
 struct SelectSmem {
   uint32_t win[kWarps][256];
 };
 
-template <int kWarps>
-struct SelectSmem<kWarps, true> {
+template <>
+struct SelectSmem<true> {
   uint32_t win[kWarps][256];
   __align__(16) int16_t tab[2 * kTable];
   __align__(8) uint64_t bar;
 };
 
-template <int kWarps, bool kStaged, bool kRedux, bool kVector>
+template <bool kStaged, bool kVector>
 __global__ void __launch_bounds__(32 * kWarps)
 orb_select_kernel(const int8_t* __restrict__ flat, int k,
                   const int16_t* __restrict__ idx0,
                   const int16_t* __restrict__ idx1,
                   const int8_t* __restrict__ mom_w, int words,
                   uint8_t* __restrict__ angles, uint32_t* __restrict__ desc) {
-  __shared__ SelectSmem<kWarps, kStaged> s;
+  __shared__ SelectSmem<kStaged> s;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kp = blockIdx.x * kWarps + warp;
 
@@ -73,14 +93,14 @@ orb_select_kernel(const int8_t* __restrict__ flat, int k,
       const uint32_t bar = smem_addr(&s.bar);
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                    :: "r"(bar), "r"(2 * kTableBytes) : "memory");
-      const int16_t* src[2] = {idx0, idx1};
+      const int16_t* tables[2] = {idx0, idx1};
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         asm volatile(
             "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
             "[%0], [%1], %2, [%3];"
             :: "r"(smem_addr(s.tab + i * kTable)),
-               "l"(reinterpret_cast<uint64_t>(src[i])), "r"(kTableBytes), "r"(bar)
+               "l"(reinterpret_cast<uint64_t>(tables[i])), "r"(kTableBytes), "r"(bar)
             : "memory");
       }
     }
@@ -115,20 +135,11 @@ orb_select_kernel(const int8_t* __restrict__ flat, int k,
     m10 = __dp4a((int)win[a], (int)wx[a], m10);
     m01 = __dp4a((int)win[a], (int)wy[a], m01);
   }
-  if constexpr (kRedux) {
-    m10 = (int)__reduce_add_sync(kFullWarp, (unsigned)m10);
-    m01 = (int)__reduce_add_sync(kFullWarp, (unsigned)m01);
-  } else {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m10 += __shfl_xor_sync(kFullWarp, m10, off);
-      m01 += __shfl_xor_sync(kFullWarp, m01, off);
-    }
-  }
+  m10 = (int)__reduce_add_sync(kFullWarp, (unsigned)m10);
+  m01 = (int)__reduce_add_sync(kFullWarp, (unsigned)m01);
   const int bin = atan2_bin(m10, m01);
   __syncwarp();
 
-  // all 8 words, whatever `words` is: no branch keeps the loads apart
   int i0[8], i1[8];
   if constexpr (kStaged) mbar_wait(&s.bar, 0);
 #pragma unroll
@@ -156,32 +167,6 @@ orb_select_kernel(const int8_t* __restrict__ flat, int k,
   if (lane == 0) angles[kp] = (uint8_t)bin;
 }
 
-template <int kWarps, bool kStaged, bool kRedux>
-cudaError_t launch_orb_select(const int8_t* flat, int k, const int16_t* idx0,
-                              const int16_t* idx1, const int8_t* mom_w, int words,
-                              uint8_t* angles, uint32_t* desc, cudaStream_t stream) {
-  if (k <= 0) return cudaGetLastError();
-  const dim3 grid((k + kWarps - 1) / kWarps), block(32 * kWarps);
-  // the tables reach shared memory by 16-byte bulk copies where they can
-  const bool staged = kStaged && reinterpret_cast<uintptr_t>(idx0) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(idx1) % 16 == 0;
-  const bool vector = reinterpret_cast<uintptr_t>(flat) % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(mom_w) % 8 == 0;
-  if (staged && vector)
-    orb_select_kernel<kWarps, true, kRedux, true><<<grid, block, 0, stream>>>(
-        flat, k, idx0, idx1, mom_w, words, angles, desc);
-  else if (staged)
-    orb_select_kernel<kWarps, true, kRedux, false><<<grid, block, 0, stream>>>(
-        flat, k, idx0, idx1, mom_w, words, angles, desc);
-  else if (vector)
-    orb_select_kernel<kWarps, false, kRedux, true><<<grid, block, 0, stream>>>(
-        flat, k, idx0, idx1, mom_w, words, angles, desc);
-  else
-    orb_select_kernel<kWarps, false, kRedux, false><<<grid, block, 0, stream>>>(
-        flat, k, idx0, idx1, mom_w, words, angles, desc);
-  return cudaGetLastError();
-}
-
 __global__ void atan2_bins_kernel(const int32_t* __restrict__ m10,
                                   const int32_t* __restrict__ m01, int n,
                                   uint8_t* __restrict__ out) {
@@ -195,8 +180,26 @@ PISLAM_API int pislam_orb_select(const int8_t* flat, int k, const int16_t* idx0,
                                  const int16_t* idx1, const int8_t* mom_w,
                                  int words, uint8_t* angles, int32_t* desc,
                                  cudaStream_t stream) {
-  return (int)launch_orb_select<8, true, true>(flat, k, idx0, idx1, mom_w, words, angles,
-                                          reinterpret_cast<uint32_t*>(desc), stream);
+  if (k <= 0) return (int)cudaGetLastError();
+  const int blocks = (k + kWarps - 1) / kWarps;
+  uint32_t* out = reinterpret_cast<uint32_t*>(desc);
+  const bool staged = reinterpret_cast<uintptr_t>(idx0) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(idx1) % 16 == 0;
+  const bool vector = reinterpret_cast<uintptr_t>(flat) % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(mom_w) % 8 == 0;
+  if (staged && vector)
+    orb_select_kernel<true, true><<<blocks, 32 * kWarps, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, out);
+  else if (staged)
+    orb_select_kernel<true, false><<<blocks, 32 * kWarps, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, out);
+  else if (vector)
+    orb_select_kernel<false, true><<<blocks, 32 * kWarps, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, out);
+  else
+    orb_select_kernel<false, false><<<blocks, 32 * kWarps, 0, stream>>>(
+        flat, k, idx0, idx1, mom_w, words, angles, out);
+  return (int)cudaGetLastError();
 }
 
 PISLAM_API int pislam_atan2_bins(const int32_t* m10, const int32_t* m01, int n,

@@ -34,21 +34,29 @@ K3 gather_windows_packed csrc/gather_windows.cu
     Replaces ``pack_row_strips`` + ``realign_windows2d``
     (pallas_kernels.py:73, :145) inside ``gather_windows_packed``
     (pallas_kernels.py:195); the 3-D ``realign_windows`` (K3c below)
-    gives the same bytes. Bound: 2 MB of
-    output at K=2048, written once. Design: a direct gather, one thread
-    per output word (4 window rows of one column), XOR 0x80 fused in;
-    the TPU's strips and rotates were workarounds for its gather cost. No
-    path runs it alone: both describe kernels gather their own windows.
+    gives the same bytes. Bound: bytes, 1 KB written a keypoint; what
+    costs is two dependent trips (the keypoint, then its window) and the
+    stores. Design: two warps a keypoint, four keypoints a block: every
+    lane loads x, y and valid (one request a warp), then lane c of each
+    half issues its 16 byte loads of window column c at once and stores 4
+    words, a warp's store a whole line, XOR 0x80 fused in; byte loads take
+    any base, width and origin. The TPU's strips and rotates were
+    workarounds for its gather cost. No path runs it alone: both describe
+    kernels gather their own windows.
 K4 orb_select            csrc/orb_select.cu
     Replaces ``orb_select_bits_sorted`` / ``_orb_sorted_kernel``
     (pallas_kernels.py:528); the dense ``orb_select_bits`` (K4d below)
-    gives identical bits. No path runs it alone. Bound: 2 MB of
-    windows read once; the work is 2x1024 moment products and 256
-    compares per keypoint. Design: one block per keypoint, window in
-    shared memory, exact int32 moments, IEEE-exact atan2 bins (no FMA
-    contraction), then bit i = p[idx1] > p[idx0], packed by warp ballot.
-    GDIFF's column is onehot(idx1) - onehot(idx0), so its sign test is
-    this compare.
+    gives identical bits. No path runs it alone. Bound: bytes, 1 KB of
+    window a keypoint and 32 KB of tables; what costs is each keypoint's
+    chain of dependent steps. Design: ``orb_describe``'s second half, a
+    warp a keypoint, four a block, no block-wide barrier on the chain:
+    lane c's 8 window words by dp4a against mom_w, one redux per moment,
+    every lane the IEEE-exact atan2 bin (no FMA contraction), the window
+    in a 1 KB shared slot, bit i = p[idx1] > p[idx0] for all 8 words at
+    once, packed by ballots. The tables reach shared memory by TMA while
+    the windows load (through L1 where not 16-byte aligned); windows off
+    4-byte alignment load byte by byte. GDIFF's column is onehot(idx1) -
+    onehot(idx0), so its sign test is this compare.
 K5 match_reduce          csrc/match_reduce.cu
     Replaces ``match_reduce`` / ``_match_reduce_kernel`` and its gated
     variant (pallas_kernels.py:688, :667, :673). Bound: 2*K1*K2*32*words

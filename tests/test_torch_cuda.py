@@ -194,12 +194,21 @@ def test_k3(dev, case):
 
 
 # K, words, base offset, windows: 1 to 8 words, K = 1 and 8192, one window
-# repeated (one bin), all -128 and all 127, the base offset by 1 and 4 bytes
+# repeated (one bin), all -128 and all 127, the base offset by 1 and 4 bytes;
+# "tables+2" puts idx0 and idx1 2 bytes and mom_w 1 byte off their alignment
 K4_CASES = {**{f"words={n}": (700, n, 0, "random") for n in range(1, 9)},
             "K=1": (1, 8, 0, "random"), "K=8192": (8192, 8, 0, "random"),
             "one bin": (2048, 8, 0, "one"), "all -128": (64, 8, 0, -128),
             "all 127": (64, 8, 0, 127), "base+1": (700, 8, 1, "random"),
-            "base+4": (700, 8, 4, "random")}
+            "base+4": (700, 8, 4, "random"), "tables+2": (700, 8, 0, "random")}
+
+
+def _tables(dev, misaligned):
+    tables = brief.OrbTables.build(dev)
+    if not misaligned:
+        return tables
+    return [_at_offset(tb.cpu().numpy().view(np.uint8), off, dev).view(tb.dtype)
+            for tb, off in zip(tables, (2, 2, 1))]
 
 
 @pytest.mark.parametrize("case", list(K4_CASES))
@@ -212,7 +221,7 @@ def test_k4(dev, case):
         flat = np.repeat(rng.integers(-128, 128, (1, 1024)).astype(np.int8), k, 0)
     else:
         flat = np.full((k, 1024), fill, np.int8)
-    args = (_at_offset(flat, off, dev), *brief.OrbTables.build(dev), words)
+    args = (_at_offset(flat, off, dev), *_tables(dev, case == "tables+2"), words)
     got = kernels.orb_select(*args)
     _same(got, kernels.orb_select_plain(*args))
     if fill != "random":

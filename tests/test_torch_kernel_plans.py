@@ -1,7 +1,7 @@
 """The pure-Python launch plans of K1 ``fused_frontend_codes``, K5
 ``match_reduce`` and K2 ``topk_keys``, the arithmetic and merge order
-that csrc/match_reduce.cu relies on, and the thread mappings of K6 and K3a,
-on the CPU (the kernels themselves run
+that csrc/match_reduce.cu relies on, and the thread mappings of K6, K3a,
+K3b and K4, on the CPU (the kernels themselves run
 only on the card: test_torch_cuda.py).
 
 - ``frontend_plan``: its grid of tiles covers every pixel and every 2x2
@@ -29,6 +29,15 @@ only on the card: test_torch_cuda.py).
   transpose and its one-or-two-strip stores) equal their plain versions
   (tolerance 0) at the pyramids and the edge shapes and offsets, every
   output written once.
+- K3b ``gather_windows_packed`` (two warps a keypoint, lane c reading
+  window column c byte by byte, so no alignment path) and K4
+  ``orb_select`` (a warp a keypoint: dp4a moments from a lane's column of
+  words, by the vector or the byte path, redux, the lane-to-pair mapping
+  and the word packing) modelled lane by lane in numpy equal their plain
+  versions (tolerance 0) on chip_smoke's edge cases: K3b at K = 1 and
+  8192, the 32x32 image, W % 4 in {1, 2, 3} and bases offset by 1-3
+  bytes; K4 at 1-8 words, K = 1 and 8192, one bin, all -128 and 127, and
+  windows and weights off their alignment.
 """
 
 import numpy as np
@@ -723,82 +732,45 @@ def test_k3a_thread_model_equals_plain(case):
 # K3b and K4: a warp per keypoint
 # ---------------------------------------------------------------------------
 
-def funnel_shift_r(lo, hi, shift):
-    """CUDA's __funnelshift_r(lo, hi, shift): the low word of hi:lo >> shift."""
-    v = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-    return ((v >> shift.astype(np.uint64)) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-
-
-def _transpose_4x4(a, b, c, d):
-    """pack_row_strips.cu's 8 byte permutes: 4 row words -> 4 column words."""
-    t0, t1 = byte_perm(a, b, 0x5140), byte_perm(c, d, 0x5140)
-    t2, t3 = byte_perm(a, b, 0x7362), byte_perm(c, d, 0x7362)
-    return [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
-            byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632)]
-
-
 def _window_origin(xs, ys, valid, h, w):
-    """The origin lanes 0-2 read and shuffle: invalid to (16, 16), then the
-    clip to [15, w-17] x [15, h-17], less 15."""
+    """The window's origin: invalid to (16, 16), then the clip to [15, w-17]
+    x [15, h-17], less 15."""
     x0 = np.clip(np.where(valid, xs, 16), 15, w - 17) - 15
     y0 = np.clip(np.where(valid, ys, 16), 15, h - 17) - 15
     return x0.astype(np.int64), y0.astype(np.int64)
 
 
-def k3b_rows_model(buf, off, h, w, xs, ys, valid):
-    """csrc/gather_windows.cu's row design, every lane of every warp at once:
-    lane (g, q) = (lane >> 3, lane & 7) of keypoint k owns columns 4q..4q+3
-    of row groups g and g + 4. For each of its 8 rows it takes the 4 bytes at
-    p = origin + row * W + 4q: the two aligned words from p & ~3, joined by a
-    funnel shift of 8 (p & 3), where the aligned words of the whole window
-    lie inside the image (the warp decides: from the first byte's word to
-    the word after the last lane's), else the 4 bytes one by one. It XORs
-    0x80 into every byte, transposes each 4x4 block with the 8 byte permutes
-    and stores the 4 words at a * 32 + 4q. Returns the (K, 1024) int8
-    windows, how often each word was written, and how many keypoints took
-    the aligned and the byte path."""
+K3B_SPLIT, K3B_PER_BLOCK = 2, 4      # csrc/gather_windows.cu kSplit, kPerBlock
+
+
+def k3b_model(buf, off, h, w, xs, ys, valid):
+    """csrc/gather_windows.cu, every thread at once: block b holds keypoints
+    4b..4b+3, two warps each; lane c of a keypoint's warp s (0 or 1) reads
+    the keypoint's x, y and valid, then the bytes of window column c in rows
+    16s..16s+15, one byte load each (no alignment needed, so every base,
+    width and origin takes this path), and stores word a * 32 + c, rows
+    4a..4a+3, for its row groups a = 4s..4s+3, 0x80 XORed into each byte.
+    Returns the (K, 1024) int8 windows and how often each word was written."""
     k = xs.size
     x0, y0 = _window_origin(xs, ys, valid, h, w)
-    lane = np.arange(32)
-    q, g = lane & 7, lane >> 3
-    end = off + h * w
-    first = off + y0 * w + x0
-    fast = ((first & ~3) >= off) & (((first + 31 * w + 28) & ~3) + 8 <= end)
-    fast = fast[:, None]
+    threads = 32 * K3B_SPLIT * K3B_PER_BLOCK
+    t = np.arange(-(-k // K3B_PER_BLOCK) * threads)
+    warp, lane = t % threads // 32, t % 32
+    kp = t // threads * K3B_PER_BLOCK + warp // K3B_SPLIT
+    half, lane = (warp % K3B_SPLIT)[kp < k], lane[kp < k]
+    kp = kp[kp < k]
     out = np.zeros((k, 256), np.uint32)
     writes = np.zeros((k, 256), np.int64)
-    words4 = buf[: buf.size // 4 * 4].view("<u4")
-    for it in (0, 1):
-        a = g + 4 * it
-        rows = []
-        for i in range(4):
-            p = off + (y0[:, None] + 4 * a + i) * w + x0[:, None] + 4 * q
-            al = p & ~3
-            lo = words4[np.where(fast, al // 4, 0)]
-            hi = words4[np.where(fast, al // 4 + 1, 0)]
-            by = np.where(fast, 0, p)[..., None] + np.arange(4)
-            bytewise = _words(buf[by].reshape(-1, 4), False).reshape(p.shape)
-            rows.append(np.where(fast, funnel_shift_r(lo, hi, 8 * (p & 3)), bytewise)
-                        ^ np.uint32(0x80808080))
-        for j, word in enumerate(_transpose_4x4(*rows)):
-            out[:, a * 32 + 4 * q + j] = word
-            writes[:, a * 32 + 4 * q + j] += 1
-    return out.view(np.int8).reshape(k, 1024), writes, (fast.sum(), (~fast).sum())
-
-
-def k3b_columns_model(buf, off, h, w, xs, ys, valid):
-    """csrc/gather_windows.cu's column design: lane c of keypoint k loads the
-    32 bytes of window column c and stores word a * 32 + c, rows 4a..4a+3,
-    XOR 0x80 in every byte."""
-    k = xs.size
-    x0, y0 = _window_origin(xs, ys, valid, h, w)
-    lane, a = np.arange(32), np.arange(8)
-    out = np.zeros((k, 256), np.uint32)
-    for b in range(4):
-        rows = y0[:, None, None] + 4 * a[:, None] + b
-        px = buf[off + rows * w + x0[:, None, None] + lane].astype(np.uint32)
-        out.reshape(k, 8, 32)[:] |= px << np.uint32(8 * b)
-    return (out ^ np.uint32(0x80808080)).view(np.int8).reshape(k, 1024)
+    groups = 8 // K3B_SPLIT
+    for g in range(groups):
+        a = half * groups + g
+        word = np.zeros(kp.size, np.uint32)
+        for b in range(4):
+            px = buf[off + (y0[kp] + 4 * a + b) * w + x0[kp] + lane]
+            word |= px.astype(np.uint32) << np.uint32(8 * b)
+        out[kp, a * 32 + lane] = word ^ np.uint32(0x80808080)
+        np.add.at(writes, (kp, a * 32 + lane), 1)
+    return out.view(np.int8).reshape(k, 1024), writes
 
 
 def _k3b_case(h, w, k, seed):
@@ -831,14 +803,10 @@ K3B_CASES = {"eval": ((800, 384), 512, 0), "vga": ((2216, 640), 2048, 0),
 def test_k3b_thread_model_equals_plain(case):
     (h, w), k, off = K3B_CASES[case]
     img, xs, ys, valid = _k3b_case(h, w, k, h + w + k + off)
+    got, writes = k3b_model(*_in_buffer(img, off), h, w, xs, ys, valid)
     want = kernels.gather_windows_packed_plain(t(img), t(xs), t(ys), t(valid)).numpy()
-    got, writes, paths = k3b_rows_model(*_in_buffer(img, off), h, w, xs, ys, valid)
     assert np.array_equal(got, want)
     assert (writes == 1).all()                   # each word written once
-    # the bottom-right window's last words reach the image's end: bytes
-    assert paths[1] > 0 and (k == 1 or paths[0] > 0)
-    assert np.array_equal(k3b_columns_model(*_in_buffer(img, off), h, w, xs, ys, valid),
-                          want)
 
 
 def dp4a(a, b, c):
@@ -848,43 +816,51 @@ def dp4a(a, b, c):
     return c + sum(signed(a, n) * signed(b, n) for n in range(4))
 
 
-def k4_model(buf, off, k, idx0, idx1, mom_w, words):
+def k4_model(buf, off, k, idx0, idx1, mw_buf, mw_off, words):
     """csrc/orb_select.cu, every lane of every warp at once: lane c of
-    keypoint k loads words c, 32 + c, ..., 224 + c of its window (one 4-byte
-    load each where the base is 4-byte aligned, else byte by byte: the same
-    words) and the 8 bytes of mom_w beside each, splits those into the m10
-    and m01 weights by two byte permutes and adds 4 products each by dp4a;
-    the butterfly sums every lane's moments, each lane computes the bin;
-    then lane l compares pairs l + 32 j of the bin, one ballot per word j,
-    and lane j stores word j for j < words. Returns the bins and the (K,
-    words) int32 words."""
+    keypoint k takes words c, 32 + c, ..., 224 + c of its window and the 8
+    bytes of mom_w beside each. With the windows 4-byte and mom_w 8-byte
+    aligned, one 4-byte and one 8-byte load each, the weights split into
+    m10 and m01 by two byte permutes; else byte by byte, the weights every
+    other byte. dp4a adds 4 products each; one redux per moment sums the
+    lanes, each lane computes the bin; lane l compares pairs l + 32 j of the
+    bin for all 8 words (the tables from shared memory or through L1: the
+    same entries), one ballot per word j, and lane j stores word j for j <
+    words. Returns the bins and the (K, words) int32 words."""
     i = np.arange(8)[:, None] * 32 + np.arange(32)          # (a, lane): word index
-    win = _words(buf[off:off + k * 1024].reshape(k, 1024), off % 4 == 0)[:, i]
-    wt = mom_w.reshape(256, 8).copy().view("<u4")[i]         # (a, lane, 2): uint2 x, y
-    wx = byte_perm(wt[..., 0], wt[..., 1], 0x6420)
-    wy = byte_perm(wt[..., 0], wt[..., 1], 0x7531)
+    vector = off % 4 == 0 and mw_off % 8 == 0
+    win = _words(buf[off:off + k * 1024].reshape(k, 1024), vector)[:, i]
+    mw = mw_buf[mw_off:mw_off + 2048].reshape(256, 8)
+    if vector:
+        wt = mw.copy().view("<u4")[i]                        # (a, lane, 2): uint2 x, y
+        wx = byte_perm(wt[..., 0], wt[..., 1], 0x6420)
+        wy = byte_perm(wt[..., 0], wt[..., 1], 0x7531)
+    else:
+        wx = _words(mw[:, 0::2], False)[i][..., 0]
+        wy = _words(mw[:, 1::2], False)[i][..., 0]
     m10 = dp4a(win, np.broadcast_to(wx, win.shape), 0).sum((1, 2))
     m01 = dp4a(win, np.broadcast_to(wy, win.shape), 0).sum((1, 2))
     from pislam_tpu_torch.ops import orientation
     bins = orientation.atan2_bins(t(m10.astype(np.int32)), t(m01.astype(np.int32))).numpy()
     p = np.ascontiguousarray(win.reshape(k, 256)).view(np.int8)   # word a * 32 + lane
-    desc = np.zeros((k, words), np.uint32)
-    for j in range(words):
+    desc = np.zeros((k, 8), np.uint32)
+    for j in range(8):
         pair = 32 * j + np.arange(32)
         i0 = idx0.astype(np.int64)[bins][:, pair]
         i1 = idx1.astype(np.int64)[bins][:, pair]
         bit = np.take_along_axis(p, i1, 1) > np.take_along_axis(p, i0, 1)
         desc[:, j] = (bit.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1)
-    return bins, desc.view(np.int32)
+    return bins, desc[:, :words].view(np.int32)
 
 
 # chip_smoke.k4_edge_cases: 1 to 8 words, K = 1 and 8192, one window
-# repeated (one bin), all -128 and all 127, the base offset by 1 and 4 bytes
+# repeated (one bin), all -128 and all 127, the base offset by 1 and 4 bytes,
+# and mom_w 1 byte off its alignment ("tables+2": the weights byte by byte)
 K4_CASES = {**{f"words={n}": (70, n, 0, "random") for n in range(1, 9)},
             "K=1": (1, 8, 0, "random"), "K=8192": (8192, 8, 0, "random"),
             "one bin": (300, 8, 0, "one"), "all -128": (64, 8, 0, -128),
             "all 127": (64, 8, 0, 127), "base+1": (300, 8, 1, "random"),
-            "base+4": (300, 8, 4, "random")}
+            "base+4": (300, 8, 4, "random"), "tables+2": (300, 8, 0, "random")}
 
 
 @pytest.mark.parametrize("case", list(K4_CASES))
@@ -898,9 +874,11 @@ def test_k4_thread_model_equals_plain(case):
         flat = np.repeat(rng.integers(-128, 128, (1, 1024)).astype(np.int8), k, 0)
     else:
         flat = np.full((k, 1024), fill, np.int8)
-    idx0, idx1, mom_w = (a.numpy() for a in brief.OrbTables.build("cpu"))
-    bins, desc = k4_model(*_in_buffer(flat.view(np.uint8), off), k, idx0, idx1, mom_w, words)
-    pang, pdesc = kernels.orb_select_plain(t(flat), *brief.OrbTables.build("cpu"), words)
+    tables = brief.OrbTables.build("cpu")
+    idx0, idx1, mom_w = (a.numpy() for a in tables)
+    mw = _in_buffer(mom_w.view(np.uint8), 1 if case == "tables+2" else 0)
+    bins, desc = k4_model(*_in_buffer(flat.view(np.uint8), off), k, idx0, idx1, *mw, words)
+    pang, pdesc = kernels.orb_select_plain(t(flat), *tables, words)
     assert np.array_equal(bins, pang.numpy()) and np.array_equal(desc, pdesc.numpy())
     if fill != "random":
         assert np.unique(bins).size == 1

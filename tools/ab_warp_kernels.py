@@ -1,26 +1,21 @@
 #!/usr/bin/env python3
 """K3b (csrc/gather_windows.cu) and K4 (csrc/orb_select.cu) on one CUDA
-card: the block-per-keypoint design before against the warp-per-keypoint
-one, and the sweep of the warp-per-keypoint builds.
+card: the block-per-keypoint design before against the current one.
 
     mkdir -p pislam_tpu_torch/_build/parent
     git archive <parent commit> pislam_tpu_torch/csrc | tar -x -C pislam_tpu_torch/_build/parent
     python3 tools/ab_warp_kernels.py --old pislam_tpu_torch/_build/parent/pislam_tpu_torch/csrc
 
-Builds the old design's two sources into a library of their own and every
-build of the sweep (K3b: lanes on columns or on aligned row words x 1, 2, 4
-and 8 keypoints a block; K4: the BRIEF tables staged by TMA or read through
-L1 x 1, 2, 4 and 8 keypoints a block) into another, under the git-ignored
-pislam_tpu_torch/_build/ab/, with the flags of ops/_build.py. Inputs are
-chip_smoke.py's: the pyramid and the keypoints of eval_seq's first frame at
-the eval config (800x384, 512 keypoints) and of a seeded VGA frame at the
-default config (2216x640, 2048), K4 on the K3b windows of those keypoints.
-Every build is held bit-exact to the plain version at both shapes and on
-chip_smoke's edge cases (the old K4 only where its 4-byte loads are aligned)
-before it is timed. Device time per call from torch.profiler
-(chip_smoke.device_us): old and current in turns old, new, new, old at each
-shape, beside an empty kernel; then each build of the sweep, twice, the
-second time in reverse order. Prints every number with the card's name and
+Builds the old design's two sources into a library of their own under the
+git-ignored pislam_tpu_torch/_build/ab/, with the flags of ops/_build.py.
+Inputs are chip_smoke.py's: the pyramid and the keypoints of eval_seq's
+first frame at the eval config (800x384, 512 keypoints) and of a seeded VGA
+frame at the default config (2216x640, 2048), K4 on the K3b windows of
+those keypoints. Both designs are held bit-exact to the plain versions at
+both shapes and on chip_smoke's edge cases (the old K4 only where its
+4-byte loads are aligned) before they are timed. Device time per call from
+torch.profiler (chip_smoke.device_us), in turns old, new, new, old at each
+shape, beside an empty kernel. Prints every number with the card's name and
 power limit and writes them to chiprun_out/ab_warp_kernels.json. Imports
 torch, numpy and the port only.
 """
@@ -44,21 +39,6 @@ import chip_smoke as cs  # noqa: E402
 from pislam_tpu_torch.ops import _build, brief, kernels  # noqa: E402
 
 REPS = 50
-WARPS = (2, 4, 8, 16)
-K3B_BUILDS = ([("columns", split, n, hdr) for split in (1, 2, 4) for n in (4, 8, 16)
-               for hdr in ("shfl", "all")]
-              + [("rows", split, n, "all") for split in (1, 2) for n in (4, 8)])
-K4_BUILDS = [(kind, "redux", n) for kind in ("ldg", "tma") for n in WARPS]
-K3B_ENTRY = ("PISLAM_API int sweep_gather_windows_{kind}_{split}_{n}_{hdr}(const uint8_t* "
-             "img, int h, int w, const int32_t* xs, const int32_t* ys, const uint8_t* valid, "
-             "int k, int8_t* out, cudaStream_t s) {{ return (int)launch_gather_windows<"
-             "{tpl}, {n}, {split}, {htpl}>(img, h, w, xs, ys, valid, k, "
-             "reinterpret_cast<uint32_t*>(out), s); }}")
-K4_ENTRY = ("PISLAM_API int sweep_orb_select_{kind}_{red}_{n}(const int8_t* flat, int k, "
-            "const int16_t* i0, const int16_t* i1, const int8_t* mw, int words, "
-            "uint8_t* ang, int32_t* desc, cudaStream_t s) {{ return (int)launch_orb_select<"
-            "{n}, {tpl}, {rtpl}>(flat, k, i0, i1, mw, words, ang, "
-            "reinterpret_cast<uint32_t*>(desc), s); }}")
 
 
 def build_library(name: str, sources: list[Path], include: Path) -> ctypes.CDLL:
@@ -84,29 +64,9 @@ def build_library(name: str, sources: list[Path], include: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def sweep_sources() -> list[Path]:
-    """One source per kernel that includes the current .cu and exports an
-    entry point per build."""
-    out = _build.BUILD_DIR / "ab" / "src"
-    out.mkdir(parents=True, exist_ok=True)
-    k3b = ['#include "gather_windows.cu"'] + [
-        K3B_ENTRY.format(kind=kind, split=split, n=n, hdr=hdr,
-                         tpl="true" if kind == "rows" else "false",
-                         htpl="true" if hdr == "shfl" else "false")
-        for kind, split, n, hdr in K3B_BUILDS]
-    k4 = ['#include "orb_select.cu"'] + [
-        K4_ENTRY.format(kind=kind, red=red, n=n, tpl="true" if kind == "tma" else "false",
-                        rtpl="true" if red == "redux" else "false")
-        for kind, red, n in K4_BUILDS]
-    paths = [out / "sweep_gather_windows.cu", out / "sweep_orb_select.cu"]
-    for path, lines in zip(paths, (k3b, k4)):
-        path.write_text("\n".join(lines) + "\n")
-    return paths
-
-
-def entry(lib: ctypes.CDLL, name: str, c_name: str):
+def entry(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
-    fn.argtypes, fn.restype = _build.SIGNATURES[c_name], ctypes.c_int
+    fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
     return fn
 
 
@@ -174,7 +134,6 @@ def main():
     new = _build.load()
     old = build_library("old", [args.old / "gather_windows.cu", args.old / "orb_select.cu"],
                         args.old)
-    sweep = build_library("sweep", sweep_sources(), _build.CSRC)
 
     cfgs = {"eval": cs.eval_config(), "vga": pt.PislamConfig()}
     seq = cs.load_sequence("eval_seq")
@@ -193,51 +152,33 @@ def main():
         k3b_in[label] = (pyr, xs, ys, valid)
         flat = kernels.gather_windows_packed_plain(pyr, xs, ys, valid)
         k4_in[label] = (flat, *tables, cfg.frontend.words)
-    k4_cases = {name: (f, *tables, words) for name, (f, words) in cs.k4_edge_cases(dev).items()}
 
     kinds = {"gather_windows_packed": (
                  k3b_in, {**k3b_in, **cs.k3b_edge_cases(dev)}, k3b_runner, k3b_out,
-                 kernels.gather_windows_packed_plain, "pislam_gather_windows",
-                 {f"{kind} {split} warp(s) a keypoint, {n} a block, header {hdr}":
-                  f"sweep_gather_windows_{kind}_{split}_{n}_{hdr}"
-                  for kind, split, n, hdr in K3B_BUILDS}),
+                 kernels.gather_windows_packed_plain, "pislam_gather_windows"),
              "orb_select": (
-                 k4_in, {**k4_in, **k4_cases}, k4_runner, k4_out, kernels.orb_select_plain,
-                 "pislam_orb_select",
-                 {f"{kind} {red} x{n}": f"sweep_orb_select_{kind}_{red}_{n}"
-                  for kind, red, n in K4_BUILDS})}
-    result = {"card": card, "reps": REPS, "ab": {}, "sweep": {}}
+                 k4_in, {**k4_in, **cs.k4_edge_cases(dev)}, k4_runner, k4_out,
+                 kernels.orb_select_plain, "pislam_orb_select")}
+    result = {"card": card, "reps": REPS, "ab": {}}
     empty_us = cs.device_us(lambda: kernels.empty_launch(dev), REPS)[0]
     result["empty_us"] = empty_us
     print(f"empty kernel: {empty_us:.3f} us [{card}]")
 
-    for name, (inputs, cases, runner, make_out, plain, c_name, builds) in kinds.items():
-        fns = {"old": entry(old, c_name, c_name), "new": entry(new, c_name, c_name)}
+    for name, (inputs, cases, runner, make_out, plain, c_name) in kinds.items():
+        fns = {"old": entry(old, c_name), "new": entry(new, c_name)}
         # the old K4 loads 4-byte words from any base: only aligned ones
         old_cases = {n: a for n, a in cases.items()
                      if name != "orb_select" or a[0].data_ptr() % 4 == 0}
         check(f"{name} old", fns["old"], old_cases, runner, make_out, plain)
         check(f"{name} new", fns["new"], cases, runner, make_out, plain)
-        variants = {v: entry(sweep, sym, c_name) for v, sym in builds.items()}
-        for vname, fn in variants.items():
-            check(f"{name} build {vname}", fn, cases, runner, make_out, plain)
-        result["ab"][name], result["sweep"][name] = {}, {v: {} for v in variants}
+        result["ab"][name] = {}
         for label, a in inputs.items():
             out = make_out(a)
             turns = [(which, cs.device_us(runner(fns[which], a, out), REPS)[0])
                      for which in ("old", "new", "new", "old")]
-            result["ab"][name][label] = {"turns": turns, "k": int(a[0].shape[0] if name ==
-                                                                 "orb_select" else a[1].numel())}
+            result["ab"][name][label] = turns
             print(f"ab {name} {label}: " + ", ".join(f"{w} {us:.3f}" for w, us in turns)
                   + f" us (empty kernel {empty_us:.3f}) [{card}]")
-            order = list(variants)
-            for vname in order + order[::-1]:
-                us = cs.device_us(runner(variants[vname], a, out), REPS)[0]
-                result["sweep"][name][vname].setdefault(label, []).append(us)
-        for vname, by_label in result["sweep"][name].items():
-            print(f"sweep {name} build {vname}: "
-                  + ", ".join(f"{label} {' / '.join(f'{u:.3f}' for u in us)}"
-                              for label, us in by_label.items()) + f" us [{card}]")
     path = ROOT / "chiprun_out" / "ab_warp_kernels.json"
     path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps(result, indent=1))
