@@ -15,7 +15,9 @@ those keypoints. Both designs are held bit-exact to the plain versions at
 both shapes and on chip_smoke's edge cases (the old K4 only where its
 4-byte loads are aligned) before they are timed. Device time per call from
 torch.profiler (chip_smoke.device_us), in turns old, new, new, old at each
-shape, beside an empty kernel. Prints every number with the card's name and
+shape, beside an empty kernel; then the current kernel through its wrapper
+as chip_smoke.py times it (20 calls, a fresh output each), over 50 calls,
+and again after the plain version has run. Prints every number with the card's name and
 power limit and writes them to chiprun_out/ab_warp_kernels.json. Imports
 torch, numpy and the port only.
 """
@@ -176,9 +178,18 @@ def main():
             out = make_out(a)
             turns = [(which, cs.device_us(runner(fns[which], a, out), REPS)[0])
                      for which in ("old", "new", "new", "old")]
-            result["ab"][name][label] = turns
+            # the current kernel through its wrapper (a fresh output each call),
+            # as chip_smoke.py times it: 20 calls, then after the plain version
+            wrapper = getattr(kernels, name)
+            calls = {"wrapper x20": cs.device_us(lambda a=a: wrapper(*a), 20)[0],
+                     "wrapper x50": cs.device_us(lambda a=a: wrapper(*a), REPS)[0]}
+            cs.time_ms(lambda a=a: plain(*a))
+            calls["wrapper x20 after plain"] = cs.device_us(lambda a=a: wrapper(*a), 20)[0]
+            calls["new x50 after wrappers"] = cs.device_us(runner(fns["new"], a, out), REPS)[0]
+            result["ab"][name][label] = {"turns": turns, **calls}
             print(f"ab {name} {label}: " + ", ".join(f"{w} {us:.3f}" for w, us in turns)
-                  + f" us (empty kernel {empty_us:.3f}) [{card}]")
+                  + f" us (empty kernel {empty_us:.3f}); "
+                  + ", ".join(f"{c} {us:.3f}" for c, us in calls.items()) + f" us [{card}]")
     path = ROOT / "chiprun_out" / "ab_warp_kernels.json"
     path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps(result, indent=1))
