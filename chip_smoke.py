@@ -30,7 +30,9 @@ prints no result line):
    random gm; orb_describe_dense on orb_describe's cases, at 2048 and 8192,
    one code repeated at 2048 and 8192 and with a random gm (also against
    orb_describe); K3c on 2048 keypoints' strip
-   rows (also against K3's bytes), K3a on each pyramid (also against its
+   rows (also against K3's bytes) and on its edge cases (k3c_edge_cases:
+   K = 1, 5 and 8192, every phi 0 or 224, each psi alone, rows 4 bytes
+   into their buffer), K3a on each pyramid (also against its
    library copy, chip_smoke.strips_by_copy); K6 and K3a on their edge cases
    (k6_edge_cases, k3a_edge_cases: odd and ragged shapes, bases offset by 1,
    4 and 8 bytes, all zero, score 255 at the 4095 coordinate limit); K3
@@ -601,6 +603,11 @@ def kernel_phase(dev, pyramids, cfgs):
                                  require_equal(f"K4 {name}", desc, pdesc))
         if name.startswith("one bin") and torch.unique(ang).numel() != 1:
             raise AssertionError(f"K4 {name}: more than one bin")
+    k3c_cases = k3c_edge_cases(dev)
+    for name, args in k3c_cases.items():
+        errs["realign_windows"] = max(errs["realign_windows"], require_equal(
+            f"K3c {name}", kernels.realign_windows(*args),
+            kernels.realign_windows_plain(*args)))
     k6_cases, k3a_cases = k6_edge_cases(dev), k3a_edge_cases(dev)
     for name, scored in k6_cases.items():
         errs["reduce_codes_4x"] = max(errs["reduce_codes_4x"], require_equal(
@@ -629,7 +636,8 @@ def kernel_phase(dev, pyramids, cfgs):
           f"bit-exact (tolerance 0) on VGA and eval shapes; K6 on {len(k6_cases)}, "
           f"K3a on {len(k3a_cases)}, K3 on {len(k3b_cases)} and K4 on {len(k4_cases)} "
           f"edge cases (odd and ragged shapes, misaligned bases and tables, ties at the "
-          f"coordinate limit, K = 1 and 8192, 1 to 8 words, one bin) bit-exact; atan2 "
+          f"coordinate limit, K = 1 and 8192, 1 to 8 words, one bin) and K3c on "
+          f"{len(k3c_cases)} ({', '.join(k3c_cases)}) bit-exact; atan2 "
           f"sweep of "
           f"{m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
@@ -867,6 +875,27 @@ def k3b_edge_cases(dev) -> dict:
     return {f"{name} {h}x{w}": (at_offset(rng.integers(0, 256, (h, w), np.uint8), off, dev),
                                 *keypoints(h, w, k))
             for name, (h, w, k, off) in shapes.items()}
+
+
+def k3c_edge_cases(dev) -> dict:
+    """K3c's edge inputs (rows, psi, phi), seeded random row words: K = 1,
+    K = 5 (not a whole block), K = 8192, every phi 0 and every phi 224 (the
+    first and the last window of a strip), each psi alone, and the rows as a
+    view that starts 4 bytes into a buffer (4-byte, not 16-byte aligned)."""
+    rng = np.random.default_rng(17)
+
+    def case(k, psi=None, phi=None, offset=0):
+        words = rng.integers(0, 2**32, (k, 9 * 256), dtype=np.uint32).view(np.uint8)
+        rows = at_offset(words.reshape(k, -1), offset, dev).view(torch.int32).view(k, 9, 256)
+        psi = rng.integers(0, 4, k) if psi is None else np.full(k, psi)
+        phi = rng.integers(0, 225, k) if phi is None else np.full(k, phi)
+        return (rows, torch.as_tensor(psi.astype(np.int32), device=dev),
+                torch.as_tensor(phi.astype(np.int32), device=dev))
+
+    return {"K=1": case(1), "K=5": case(5), "K=8192": case(8192),
+            "phi=0": case(300, phi=0), "phi=224": case(300, phi=224),
+            **{f"psi={s}": case(300, psi=s) for s in range(4)},
+            "rows +4 bytes": case(300, offset=4)}
 
 
 def k4_edge_cases(dev) -> dict:

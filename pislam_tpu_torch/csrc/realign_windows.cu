@@ -14,26 +14,53 @@
 // phi + c <= 255, so nothing wraps.
 //
 // Bound: bytes, 1 KB written and at most 2.3 KB read per keypoint (two
-// 32-word runs of each of 9 rows). Design: one block of 256 threads per
-// keypoint, one thread per output word; a warp reads 32 neighbouring words
-// of two rows and writes 32 neighbouring words.
+// 32-word runs of each of 9 rows). Sweep build: kSplit warps a keypoint,
+// kPerBlock keypoints a block. Every lane loads the keypoint's psi and phi
+// (one request each for the warp); lane c of warp s then issues its loads
+// of column phi + c in rows p0..p0 + 8 / kSplit (p0 = s * 8 / kSplit) at
+// once, 4-byte loads (phi is any column and rows may start at any int32
+// offset), and stores words (p, c) for its 8 / kSplit output rows, a warp's
+// store a whole 128-byte line.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRows = 9;
+constexpr int kSplit = 2;                        // warps a keypoint
+constexpr int kPerBlock = 4;                     // keypoints a block
 
-__global__ void __launch_bounds__(256)
+template <int Split, int PerBlock>
+__global__ void __launch_bounds__(32 * Split * PerBlock)
 realign_windows_kernel(const uint32_t* __restrict__ rows,
                        const int32_t* __restrict__ psi,
-                       const int32_t* __restrict__ phi,
+                       const int32_t* __restrict__ phi, int k,
                        uint32_t* __restrict__ out) {
-  const int kp = blockIdx.x;
-  const int p = threadIdx.x >> 5, c = threadIdx.x & 31;
-  const uint32_t* base = rows + (size_t)kp * kRows * 256 + phi[kp] + c;
-  const uint32_t lo = base[p * 256];
-  const uint32_t hi = base[(p + 1) * 256];
-  out[(size_t)kp * 256 + threadIdx.x] = __funnelshift_r(lo, hi, 8 * psi[kp]);
+  constexpr int kOut = 8 / Split;               // output rows a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kp = blockIdx.x * PerBlock + warp / Split;
+  const int p0 = warp % Split * kOut;
+  if (kp >= k) return;
+  // two loads issued together; the rows wait on phi alone
+  const int shift = 8 * psi[kp];
+  const uint32_t* col = rows + ((size_t)kp * kRows + p0) * 256 + phi[kp] + lane;
+  uint32_t r[kOut + 1];
+#pragma unroll
+  for (int i = 0; i <= kOut; ++i) r[i] = col[i * 256];
+  uint32_t* o = out + (size_t)kp * 256 + p0 * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) o[i * 32] = __funnelshift_r(r[i], r[i + 1], shift);
+}
+
+template <int Split, int PerBlock>
+cudaError_t launch_realign_windows(const int32_t* rows, const int32_t* psi,
+                                   const int32_t* phi, int k, int32_t* out,
+                                   cudaStream_t stream) {
+  if (k > 0)
+    realign_windows_kernel<Split, PerBlock>
+        <<<(k + PerBlock - 1) / PerBlock, 32 * Split * PerBlock, 0, stream>>>(
+            reinterpret_cast<const uint32_t*>(rows), psi, phi, k,
+            reinterpret_cast<uint32_t*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -41,10 +68,5 @@ realign_windows_kernel(const uint32_t* __restrict__ rows,
 PISLAM_API int pislam_realign_windows(const int32_t* rows, const int32_t* psi,
                                       const int32_t* phi, int k, int32_t* out,
                                       cudaStream_t stream) {
-  if (k > 0) {
-    realign_windows_kernel<<<k, 256, 0, stream>>>(
-        reinterpret_cast<const uint32_t*>(rows), psi, phi,
-        reinterpret_cast<uint32_t*>(out));
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_realign_windows<kSplit, kPerBlock>(rows, psi, phi, k, out, stream);
 }

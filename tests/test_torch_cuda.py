@@ -487,6 +487,14 @@ def test_k3c(dev):
     words = kernels.realign_windows(*kernels.strip_window_rows(img, xs, ys, valid))
     win = (words.reshape(-1, 256).view(torch.uint8) ^ 0x80).view(torch.int8)
     _same(win, kernels.gather_windows_packed(img, xs, ys, valid))
+    # K = 1, 5 (not a whole block) and 8192, and rows 4 bytes into a buffer
+    for k, offset in ((1, 0), (5, 0), (8192, 0), (300, 1)):
+        buf = t(rng.integers(0, 2**32, k * 9 * 256 + 4, dtype=np.uint32).view(np.int32)).to(dev)
+        rows = buf[offset:offset + k * 9 * 256].view(k, 9, 256)
+        psi = t(rng.integers(0, 4, k).astype(np.int32)).to(dev)
+        phi = t(rng.integers(0, 225, k).astype(np.int32)).to(dev)
+        _same(kernels.realign_windows(rows, psi, phi),
+              kernels.realign_windows_plain(rows, psi, phi))
 
 
 @pytest.mark.parametrize("shape,offset", [

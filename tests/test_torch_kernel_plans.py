@@ -1,7 +1,7 @@
 """The pure-Python launch plans of K1 ``fused_frontend_codes``, K5
 ``match_reduce`` and K2 ``topk_keys``, the arithmetic and merge order
 that csrc/match_reduce.cu relies on, and the thread mappings of K6, K3a,
-K3b and K4, on the CPU (the kernels themselves run
+K3b, K4 and K3c, on the CPU (the kernels themselves run
 only on the card: test_torch_cuda.py).
 
 - ``frontend_plan``: its grid of tiles covers every pixel and every 2x2
@@ -38,7 +38,18 @@ only on the card: test_torch_cuda.py).
   8192, the 32x32 image, W % 4 in {1, 2, 3} and bases offset by 1-3
   bytes; K4 at 1-8 words, K = 1 and 8192, one bin, all -128 and 127, and
   windows and weights off their alignment.
+- K3c ``realign_windows`` (kSplit warps a keypoint, kPerBlock keypoints a
+  block, both read from csrc/realign_windows.cu; lane c's 4-byte loads of
+  column phi + c in its rows, one funnel shift an output word) modelled
+  lane by lane in numpy equals its plain version (tolerance 0), writes
+  every output word once and reads only rows 0-8 and columns 0-255 of its
+  own keypoint: on the eval and VGA pyramids' strip rows and chip_smoke's
+  edge cases (K = 1, 5 and 8192, every phi 0 or 224, each psi alone, rows
+  one int32 into their buffer).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -882,3 +893,90 @@ def test_k4_thread_model_equals_plain(case):
     assert np.array_equal(bins, pang.numpy()) and np.array_equal(desc, pdesc.numpy())
     if fill != "random":
         assert np.unique(bins).size == 1
+
+
+# ---------------------------------------------------------------------------
+# K3c: warps a keypoint over strip rows
+# ---------------------------------------------------------------------------
+
+def _cu_constants(source, *names):
+    """The ``constexpr int`` values ``names`` of csrc/<source>: the build the
+    kernel is compiled with."""
+    text = (Path(kernels.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", text).group(1)) for n in names)
+
+
+K3C_SPLIT, K3C_PER_BLOCK = _cu_constants("realign_windows.cu", "kSplit", "kPerBlock")
+
+
+def k3c_model(buf, off, psi, phi):
+    """csrc/realign_windows.cu, every lane at once: block b holds keypoints
+    b * kPerBlock onwards, kSplit warps each; lane c of a keypoint's warp s
+    reads psi and phi, then the words of column phi + c in rows p0 .. p0 + n
+    of its keypoint (n = 8 / kSplit, p0 = s n), and stores word (p, c), the
+    funnel shift right by 8 psi of rows p + 1 : p, for p = p0 .. p0 + n - 1.
+    buf is the flat u32 buffer whose word `off` is row 0 of keypoint 0.
+    Returns the (K, 8, 32) int32 words, how often each was written, and the
+    (keypoint, row, column) of every read."""
+    k = psi.size
+    threads = 32 * K3C_SPLIT * K3C_PER_BLOCK
+    t_ = np.arange(-(-k // K3C_PER_BLOCK) * threads)
+    warp, lane = t_ % threads // 32, t_ % 32
+    kp = t_ // threads * K3C_PER_BLOCK + warp // K3C_SPLIT
+    live = kp < k
+    n = 8 // K3C_SPLIT
+    p0, lane, kp = (warp % K3C_SPLIT)[live] * n, lane[live], kp[live]
+    col = phi.astype(np.int64)[kp] + lane
+    shift = (8 * psi.astype(np.uint64)[kp]) & np.uint64(31)
+    reads, r = [], []
+    for i in range(n + 1):
+        reads.append((kp, p0 + i, col))
+        r.append(buf[off + (kp * kernels.STRIP_ROWS + p0 + i) * 256 + col].astype(np.uint64))
+    out = np.zeros((k, 8, 32), np.uint32)
+    writes = np.zeros((k, 8, 32), np.int64)
+    for i in range(n):
+        out[kp, p0 + i, lane] = ((r[i] | (r[i + 1] << np.uint64(32))) >> shift) & np.uint64(
+            0xFFFFFFFF)
+        np.add.at(writes, (kp, p0 + i, lane), 1)
+    return out.view(np.int32), writes, reads
+
+
+# the pyramids' strip rows at the path's keypoint counts (K3b's seeded
+# keypoints), then chip_smoke.k3c_edge_cases: K = 1, K = 5 (not a whole
+# block), K = 8192, every phi 0, every phi 224, each psi alone, and the rows
+# starting one int32 into their buffer (4-byte, not 16-byte aligned)
+K3C_CASES = {"eval": {"image": (800, 384), "k": 512}, "vga": {"image": (2216, 640), "k": 2048},
+             "K=1": {"k": 1}, "K=5": {"k": 5}, "K=8192": {"k": 8192},
+             "phi=0": {"k": 300, "phi": 0}, "phi=224": {"k": 300, "phi": 224},
+             **{f"psi={s}": {"k": 300, "psi": s} for s in range(4)},
+             "rows+4": {"k": 300, "off": 1}}
+
+
+def _k3c_case(case, seed):
+    """(u32 buffer, word offset, rows as a view of it, psi, phi)."""
+    spec = K3C_CASES[case]
+    k, off = spec["k"], spec.get("off", 0)
+    rng = np.random.default_rng(seed)
+    if "image" in spec:
+        img, xs, ys, valid = _k3b_case(*spec["image"], k, seed)
+        rows, psi, phi = kernels.strip_window_rows(t(img), t(xs), t(ys), t(valid))
+        return rows.numpy().reshape(-1).view(np.uint32), 0, rows, psi.numpy(), phi.numpy()
+    buf = rng.integers(0, 2**32, k * kernels.STRIP_ROWS * 256 + 4, dtype=np.uint32)
+    rows = t(buf.view(np.int32))[off:off + k * kernels.STRIP_ROWS * 256].view(
+        k, kernels.STRIP_ROWS, 256)
+    psi = rng.integers(0, 4, k) if "psi" not in spec else np.full(k, spec["psi"])
+    phi = rng.integers(0, 225, k) if "phi" not in spec else np.full(k, spec["phi"])
+    return buf, off, rows, psi.astype(np.int32), phi.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", list(K3C_CASES))
+def test_k3c_thread_model_equals_plain(case):
+    buf, off, rows, psi, phi = _k3c_case(case, list(K3C_CASES).index(case) + 17)
+    assert rows.storage_offset() == off
+    got, writes, reads = k3c_model(buf, off, psi, phi)
+    want = kernels.realign_windows_plain(rows, t(psi), t(phi)).numpy()
+    assert np.array_equal(got, want)
+    assert (writes == 1).all()                   # each word written once
+    for kp, row, col in reads:                   # inside its own keypoint's rows
+        assert 0 <= row.min() and row.max() < kernels.STRIP_ROWS
+        assert 0 <= col.min() and col.max() <= 255
