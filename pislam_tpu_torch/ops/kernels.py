@@ -131,8 +131,12 @@ K3+K4 orb_describe       csrc/orb_describe.cu
 K3c realign_windows      csrc/realign_windows.cu
     Replaces ``realign_windows`` / ``_realign_kernel`` (pallas_kernels.py:172,
     :92): strip rows -> packed windows. No path of the JAX package runs it.
-    Bound: bytes, 1 KB written per keypoint. Design: one funnel shift per
-    output word, the composition of the TPU's rotate and shift rounds.
+    Bound: bytes, 1 KB written per keypoint; what costs is two dependent
+    trips (psi and phi, then the row words). Design: two warps a keypoint,
+    four keypoints a block (one wave at VGA); every lane loads psi and phi,
+    then lane c of half h issues its five 4-byte loads of column phi + c,
+    rows 4h..4h+4, at once and stores four words, each one funnel shift,
+    the composition of the TPU's rotate and shift rounds.
 """
 
 from __future__ import annotations

@@ -1,26 +1,24 @@
 #!/usr/bin/env python3
 """K3c (csrc/realign_windows.cu) on one CUDA card: the block-per-keypoint
-design before against the warps-per-keypoint one, and the sweep of the
-warps-per-keypoint builds.
+design before against the warps-per-keypoint one.
 
     mkdir -p pislam_tpu_torch/_build/parent
     git archive <parent commit> pislam_tpu_torch/csrc | tar -x -C pislam_tpu_torch/_build/parent
     python3 tools/ab_realign_windows.py --old pislam_tpu_torch/_build/parent/pislam_tpu_torch/csrc
 
-Builds the old design's source into a library of its own and every build of
-the sweep (1, 2 and 4 warps a keypoint x 2, 4, 8 and 16 keypoints a block,
-at most 1024 threads a block) into another, under the git-ignored
-pislam_tpu_torch/_build/ab/, with the flags of ops/_build.py. Inputs are
+Builds the old design's source into a library of its own under the
+git-ignored pislam_tpu_torch/_build/ab/, with the flags of ops/_build.py. Inputs are
 chip_smoke.py's: the strip rows of the keypoints of eval_seq's first frame
 at the eval config (800x384 pyramid, 512 keypoints) and of a seeded VGA
-frame at the default config (2216x640, 2048). Every build is held bit-exact
+frame at the default config (2216x640, 2048). Both designs are held bit-exact
 to the plain version at both shapes and on chip_smoke.k3c_edge_cases before
 it is timed. Device time per call from torch.profiler (chip_smoke.device_us,
-50 calls): old and current in turns old, new, new, old at each shape, beside
-an empty kernel; the current kernel through its wrapper as chip_smoke.py
-times it (20 calls, a fresh output each); then each build of the sweep,
-twice, the second time in reverse order. Writes the SASS of both libraries
-(cuobjdump -sass) to chiprun_out/ab_realign_windows.sass, prints every
+50 calls): old and current in turns old, new, new, old at each shape, twice,
+beside an empty kernel; then the current kernel through its wrapper as
+chip_smoke.py times it (20 calls, a fresh output each), over 50 calls, and
+again after the plain version has run. Writes the SASS of the old library
+and of the current kernel (cuobjdump -sass) to
+chiprun_out/ab_realign_windows.sass, prints every
 number with the card's name and power limit and writes them to
 chiprun_out/ab_realign_windows.json. Imports torch, numpy and the port only.
 """
@@ -45,10 +43,6 @@ from pislam_tpu_torch.ops import _build, kernels  # noqa: E402
 
 REPS = 50
 C_NAME = "pislam_realign_windows"
-BUILDS = [(split, n) for split in (1, 2, 4) for n in (2, 4, 8, 16) if 32 * split * n <= 1024]
-ENTRY = ("PISLAM_API int sweep_realign_windows_{split}_{n}(const int32_t* rows, "
-         "const int32_t* psi, const int32_t* phi, int k, int32_t* out, cudaStream_t s) "
-         "{{ return (int)launch_realign_windows<{split}, {n}>(rows, psi, phi, k, out, s); }}")
 
 
 def build_library(name: str, source: Path, include: Path) -> tuple[ctypes.CDLL, Path]:
@@ -68,17 +62,6 @@ def build_library(name: str, source: Path, include: Path) -> tuple[ctypes.CDLL, 
     lib = out / f"lib{name}.so"
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(obj)], check=True)
     return ctypes.CDLL(str(lib)), obj
-
-
-def sweep_source() -> Path:
-    """A source that includes the current .cu and exports an entry point per
-    build."""
-    out = _build.BUILD_DIR / "ab" / "src"
-    out.mkdir(parents=True, exist_ok=True)
-    path = out / "sweep_realign_windows.cu"
-    path.write_text("\n".join(['#include "realign_windows.cu"']
-                              + [ENTRY.format(split=s, n=n) for s, n in BUILDS]) + "\n")
-    return path
 
 
 def entry(lib: ctypes.CDLL, name: str):
@@ -132,11 +115,11 @@ def main():
     print(card)
     new = _build.load()
     old, old_obj = build_library("old", args.old / "realign_windows.cu", args.old)
-    swept, sweep_obj = build_library("sweep", sweep_source(), _build.CSRC)
+    _, new_obj = build_library("new", _build.CSRC / "realign_windows.cu", _build.CSRC)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab_realign_windows.sass").write_text(
-        f"# old\n{sass(old_obj)}\n# sweep\n{sass(sweep_obj)}")
+        f"# old\n{sass(old_obj)}\n# new\n{sass(new_obj)}")
 
     cfgs = {"eval": cs.eval_config(), "vga": pt.PislamConfig()}
     seq = cs.load_sequence("eval_seq")
@@ -154,38 +137,28 @@ def main():
     cases = {**inputs, **cs.k3c_edge_cases(dev)}
 
     fns = {"old": entry(old, C_NAME), "new": entry(new, C_NAME)}
-    sweep = {f"{s} warps a keypoint, {n} a block": entry(swept, f"sweep_realign_windows_{s}_{n}")
-             for s, n in BUILDS}
     check("old", fns["old"], cases)
     check("new", fns["new"], cases)
-    for name, fn in sweep.items():
-        check(name, fn, cases)
-    print(f"bit-exact: old, new and {len(sweep)} builds on {len(cases)} cases")
+    print(f"bit-exact: old and new on {len(cases)} cases")
 
     empty_us = cs.device_us(lambda: kernels.empty_launch(dev), REPS)[0]
-    result = {"card": card, "reps": REPS, "empty_us": empty_us, "ab": {}, "sweep": {}}
+    result = {"card": card, "reps": REPS, "empty_us": empty_us, "ab": {}}
     print(f"empty kernel: {empty_us:.3f} us [{card}]")
     for label, a in inputs.items():
         out = make_out(a)
         turns = [(which, cs.device_us(runner(fns[which], a, out), REPS)[0])
-                 for which in ("old", "new", "new", "old")]
+                 for which in ("old", "new", "new", "old") * 2]
         wrapper = {"wrapper x20": cs.device_us(lambda a=a: kernels.realign_windows(*a), 20)[0],
                    "wrapper x50": cs.device_us(lambda a=a: kernels.realign_windows(*a),
                                                REPS)[0]}
+        cs.time_ms(lambda a=a: kernels.realign_windows_plain(*a))
+        wrapper["wrapper x20 after plain"] = cs.device_us(
+            lambda a=a: kernels.realign_windows(*a), 20)[0]
         result["ab"][label] = {"turns": turns, **wrapper}
         print(f"ab {label} (K={a[1].numel()}): "
               + ", ".join(f"{w} {us:.3f}" for w, us in turns)
               + f" us (empty kernel {empty_us:.3f}); "
               + ", ".join(f"{c} {us:.3f}" for c, us in wrapper.items()) + f" us [{card}]")
-    for order in (list(sweep), list(sweep)[::-1]):
-        for name in order:
-            for label, a in inputs.items():
-                us = cs.device_us(runner(sweep[name], a, make_out(a)), REPS)[0]
-                result["sweep"].setdefault(name, {}).setdefault(label, []).append(us)
-    for name, by_label in result["sweep"].items():
-        print(f"sweep {name}: " + ", ".join(
-            f"{label} {' / '.join(f'{us:.3f}' for us in r)}" for label, r in by_label.items())
-            + f" us [{card}]")
     path = out_dir / "ab_realign_windows.json"
     path.write_text(json.dumps(result, indent=1))
     print(f"wrote {path.relative_to(ROOT)}")
