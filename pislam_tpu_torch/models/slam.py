@@ -232,7 +232,7 @@ class KeyframeSLAM:
         self.cfg = cfg
         self.metrics = metrics if metrics is not None else NullMetrics()
         self.vo = VisualOdometry(cfg, fx, fy, cx, cy, features_fn=features_fn, dist=dist,
-                                 device=device)
+                                 device=device, metrics=self.metrics)
         self.device = self.vo.device
         self.keyframe_min_inliers = keyframe_min_inliers
         self.keyframe_max_gap = keyframe_max_gap
@@ -368,7 +368,12 @@ class KeyframeSLAM:
     # -- public ---------------------------------------------------------------
 
     def process(self, frame):
-        """Track one frame; returns a dict with the pose and bookkeeping."""
+        """Track one frame; returns a dict with the pose and bookkeeping.
+        The frame is the span ``process``, its stages spans inside it."""
+        with self.metrics.timer("process", self._frame_idx):
+            return self._process(frame)
+
+    def _process(self, frame):
         m = self.metrics
         m.count("frames")
         with m.timer("extract"):
@@ -522,7 +527,13 @@ class KeyframeSLAM:
         ends lost relocalises its last frame against the whole store here,
         on the host, and promotes it to a recovery keyframe. Needs the image
         frontend and mapping. Returns the per-frame outputs as numpy arrays
-        (pose_R, pose_t, keyframe, num_inliers, map_inliers)."""
+        (pose_R, pose_t, keyframe, num_inliers, map_inliers). The chunk is
+        the span ``process_chunk`` with its first frame's id; the scan's
+        per-frame spans carry their own."""
+        with self.metrics.timer("process_chunk", self._frame_idx):
+            return self._process_chunk(frames)
+
+    def _process_chunk(self, frames):
         if not self._has_image_frontend:
             raise ValueError("process_chunk requires the image frontend "
                              "(features_fn is host code)")
@@ -537,14 +548,15 @@ class KeyframeSLAM:
                 self.cfg, *self.vo.frontend.intrinsics,
                 keyframe_min_inliers=self.keyframe_min_inliers,
                 keyframe_max_gap=self.keyframe_max_gap, dist=self.vo.frontend.dist,
-                device=self.device)
+                device=self.device, metrics=self.metrics)
         frames = torch.as_tensor(frames).to(self.device)
         m = self.metrics
         n_kf_before, n_lm_before = self._num_kf, self._num_lm
         with m.timer("scan_chunk"):
-            st, outs = self._chunk_scan(self.state, frames, self._num_kf)
-            self.set_state(st)  # the chunk's readback
-            outs = {k: _host(v) for k, v in outs.items()}
+            st, outs = self._chunk_scan(self.state, frames, self._num_kf, self._frame_idx)
+            with m.timer("readback"):
+                self.set_state(st)
+                outs = {k: _host(v) for k, v in outs.items()}
         m.count("frames", frames.shape[0])
         m.count("keyframes_inserted", self._num_kf - n_kf_before)
         for R, t in zip(outs["pose_R"], outs["pose_t"]):
@@ -597,15 +609,17 @@ class KeyframeSLAM:
 
     def _insert_keyframe(self, feats, pts, R, t, idx2, inliers, prev_slot: int,
                          map_idx=None):
-        st = self.state  # sync counters into the device state
-        if map_idx is None:
-            map_idx = torch.full((pts.shape[0],), -1, dtype=torch.int32, device=self.device)
-        self._st = self._insert(st, feats, pts, self._tensor(R), self._tensor(t), idx2,
-                                inliers, prev_slot, map_idx)
-        c = _host(self._st.counters)
-        self._num_kf, self._num_lm, self._num_obs = int(c[0]), int(c[1]), int(c[2])
-        self._culled_slots.discard((self._num_kf - 1) % self.capacity)
-        self._cache_last((self._num_kf - 1) % self.capacity)
+        with self.metrics.timer("insert"):
+            st = self.state  # sync counters into the device state
+            if map_idx is None:
+                map_idx = torch.full((pts.shape[0],), -1, dtype=torch.int32,
+                                     device=self.device)
+            self._st = self._insert(st, feats, pts, self._tensor(R), self._tensor(t), idx2,
+                                    inliers, prev_slot, map_idx)
+            c = _host(self._st.counters)
+            self._num_kf, self._num_lm, self._num_obs = int(c[0]), int(c[1]), int(c[2])
+            self._culled_slots.discard((self._num_kf - 1) % self.capacity)
+            self._cache_last((self._num_kf - 1) % self.capacity)
         if self._num_kf >= 2:
             self._local_ba()
 
@@ -638,13 +652,14 @@ class KeyframeSLAM:
 
     def _local_ba(self):
         bc = self.cfg.ba
-        if bc.covisibility_window and self._num_kf > bc.window:
-            ordinals, slots = self._window_covis()
-        else:
-            ordinals, slots = self._window()
-        self._run_ba(ordinals, slots, C=bc.window, max_points=bc.max_points,
-                     max_obs=bc.max_obs, iters=bc.gn_iters,
-                     fixed_observers=bc.fixed_observers)
+        with self.metrics.timer("local_ba"):
+            if bc.covisibility_window and self._num_kf > bc.window:
+                ordinals, slots = self._window_covis()
+            else:
+                ordinals, slots = self._window()
+            self._run_ba(ordinals, slots, C=bc.window, max_points=bc.max_points,
+                         max_obs=bc.max_obs, iters=bc.gn_iters,
+                         fixed_observers=bc.fixed_observers)
 
     def global_ba(self, iters: Optional[int] = None):
         """Full-map bundle adjustment: all stored keyframes + landmarks, the
@@ -785,6 +800,10 @@ class KeyframeSLAM:
         its two boundary BAs when ``map.chunk_retriangulate`` is set.
         Degenerate results (behind a camera or not finite) keep their old
         position. Returns the number of landmarks moved."""
+        with self.metrics.timer("retriangulate"):
+            return self._retriangulate(lm_lo, lm_hi)
+
+    def _retriangulate(self, lm_lo: int, lm_hi: int) -> int:
         if lm_hi <= lm_lo:
             return 0
         st = self._st

@@ -31,6 +31,12 @@ RANSAC samples come from the state's generator in ``process``'s order: each
 tracked frame draws the essential samples and, with
 ``vo.bootstrap_model_select``, the homography samples after them. Windowed
 BA is not inside the scan: it runs per chunk in ``process_chunk``.
+
+Each frame's stages are spans of ``metrics`` (``utils/metrics.py``) with the
+frame's id: ``extract`` (with the frontend's ``pyramid``), ``track`` (match
+and RANSAC, with the homography's), ``map_track`` and ``insert`` (the insert
+and the state's select). The host only launches inside them; the card's work
+is waited for at the chunk's readback.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..backend import keyframes as kfs
 from ..config import PislamConfig
 from ..geometry import homography, ransac
 from ..ops import kernels
+from ..utils.metrics import NullMetrics
 from .slam import (SlamState, insert_keyframe_state, keyframe_step_prior,
                    rescale_step_to_prior, track_map_state)
 from .visual_odometry import _Frontend
@@ -65,18 +72,21 @@ def _all_finite(*xs):
 
 def make_slam_track_scan(cfg: PislamConfig, fx: float, fy: float, cx: float, cy: float,
                          keyframe_min_inliers: int = 60, keyframe_max_gap: int = 10,
-                         dist=None, device="cuda"):
-    """Build ``run(state, frames (T, H, W) uint8, num_kf) -> (state, outs)``.
+                         dist=None, device="cuda", metrics=None):
+    """Build ``run(state, frames (T, H, W) uint8, num_kf, first_frame=0) ->
+    (state, outs)``.
 
     ``num_kf`` is the host's count of keyframes in ``state`` (its
-    ``counters[0]``), so that the host never reads it. ``outs`` holds the
+    ``counters[0]``), so that the host never reads it; ``first_frame`` is
+    the frame id of ``frames[0]``, for the spans. ``outs`` holds the
     per-frame pose_R (T, 3, 3), pose_t (T, 3), keyframe, num_inliers and
     map_inliers (the fields ``KeyframeSLAM.process`` returns), stacked on
     the device."""
     mc, vc, mapc = cfg.matcher, cfg.vo, cfg.map
     cap = mapc.keyframe_capacity
     K = cfg.frontend.max_keypoints
-    frontend = _Frontend(cfg, fx, fy, cx, cy, dist, device, kernels.HOPPER)
+    m = metrics if metrics is not None else NullMetrics()
+    frontend = _Frontend(cfg, fx, fy, cx, cy, dist, device, kernels.HOPPER, metrics=m)
     dev = frontend.device
     lanes = torch.arange(5, device=dev)
 
@@ -87,40 +97,42 @@ def make_slam_track_scan(cfg: PislamConfig, fx: float, fy: float, cx: float, cy:
         return insert_keyframe_state(cap, st, feats, pts, R, t, idx2, inliers, prev_slot,
                                      map_idx, refresh_desc=mapc.refresh_descriptors)
 
-    def bootstrap(st, feats, pts):
+    def bootstrap(st, feats, pts, f):
         R0 = torch.eye(3, device=dev)
         t0 = torch.zeros(3, device=dev)
         no_match = torch.full((K,), -1, dtype=torch.int32, device=dev)
-        st = insert(st, feats, pts, R0, t0, no_match, torch.zeros(K, dtype=torch.bool,
-                                                                   device=dev), 0, no_match)
+        with m.timer("insert", f):
+            st = insert(st, feats, pts, R0, t0, no_match,
+                        torch.zeros(K, dtype=torch.bool, device=dev), 0, no_match)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return st, (R0, t0, torch.ones((), dtype=torch.bool, device=dev), zero, zero)
 
-    def track(st, feats, pts, prev_R, prev_t, homography_possible):
+    def track(st, feats, pts, prev_R, prev_t, homography_possible, f):
         num_kf = st.counters[0]
         slot = torch.remainder(num_kf - 1, cap)
         store = st.store
         p1 = kfs.row(store.pts, slot)
-        idx2, _ = matching.match(kfs.row(store.descriptors, slot), feats.descriptors,
-                                 kfs.row(store.kp_valid, slot), feats.valid,
-                                 max_distance=mc.max_distance, ratio=mc.ratio,
-                                 cross_check=mc.cross_check)
-        ok = idx2 >= 0
-        p2 = pts[torch.clamp(idx2, min=0).long()]
-        idx_e = ransac.sample_indices(ok, vc.ransac_iters, 8, st.generator)
-        out = ransac.ransac_essential(p1, p2, ok, iters=vc.ransac_iters,
-                                      inlier_threshold=vc.inlier_threshold, idx=idx_e)
-        if vc.bootstrap_model_select:
-            # drawn on every tracked frame, as process draws them
-            idx_h = ransac.sample_indices(ok, vc.ransac_iters, 4, st.generator)
-            if homography_possible:
-                oh = homography.ransac_homography(p1, p2, ok, iters=vc.ransac_iters,
-                                                  inlier_threshold=vc.inlier_threshold,
-                                                  idx=idx_h)
-                sel = homography.choose_model(out, oh)
-                boot = num_kf == 1
-                out = {k: torch.where(boot, sel[k], out[k])
-                       for k in ("R", "t", "inliers", "num_inliers")}
+        with m.timer("track", f):
+            idx2, _ = matching.match(kfs.row(store.descriptors, slot), feats.descriptors,
+                                     kfs.row(store.kp_valid, slot), feats.valid,
+                                     max_distance=mc.max_distance, ratio=mc.ratio,
+                                     cross_check=mc.cross_check)
+            ok = idx2 >= 0
+            p2 = pts[torch.clamp(idx2, min=0).long()]
+            idx_e = ransac.sample_indices(ok, vc.ransac_iters, 8, st.generator)
+            out = ransac.ransac_essential(p1, p2, ok, iters=vc.ransac_iters,
+                                          inlier_threshold=vc.inlier_threshold, idx=idx_e)
+            if vc.bootstrap_model_select:
+                # drawn on every tracked frame, as process draws them
+                idx_h = ransac.sample_indices(ok, vc.ransac_iters, 4, st.generator)
+                if homography_possible:
+                    oh = homography.ransac_homography(p1, p2, ok, iters=vc.ransac_iters,
+                                                      inlier_threshold=vc.inlier_threshold,
+                                                      idx=idx_h)
+                    sel = homography.choose_model(out, oh)
+                    boot = num_kf == 1
+                    out = {k: torch.where(boot, sel[k], out[k])
+                           for k in ("R", "t", "inliers", "num_inliers")}
         n_inl = out["num_inliers"].to(torch.int32)
         Rrel, t_raw = out["R"], out["t"]
         # lost when tracking collapses or the solve is not finite: the
@@ -149,7 +161,8 @@ def make_slam_track_scan(cfg: PislamConfig, fx: float, fy: float, cx: float, cy:
 
         n_lm = st.counters[1]
         if mapc.track_map:
-            Rm, tm, n_map, assoc = track_map_state(cfg, st.lmap, feats, pts, R, t)
+            with m.timer("map_track", f):
+                Rm, tm, n_map, assoc = track_map_state(cfg, st.lmap, feats, pts, R, t)
             tracked = (n_lm > 0) & ~lost
             n_map = torch.where(tracked, n_map.to(torch.int32), 0)
             use = tracked & (n_map >= mapc.min_map_inliers) & _all_finite(Rm, tm)
@@ -171,11 +184,13 @@ def make_slam_track_scan(cfg: PislamConfig, fx: float, fy: float, cx: float, cy:
             # table can still grow
             make_kf = make_kf | (~lost & (n_lm > 0) & (n_map < mapc.min_map_inliers)
                                  & (n_lm < mapc.max_landmarks))
-        ins = insert(st, feats, pts, R, t, idx2, out["inliers"], slot, map_idx)
-        ins = ins._replace(counters=set_counter(ins.counters, 4, 0))
-        return _select_state(make_kf, ins, st), (R, t, make_kf, n_inl, n_map)
+        with m.timer("insert", f):
+            ins = insert(st, feats, pts, R, t, idx2, out["inliers"], slot, map_idx)
+            ins = ins._replace(counters=set_counter(ins.counters, 4, 0))
+            st = _select_state(make_kf, ins, st)
+        return st, (R, t, make_kf, n_inl, n_map)
 
-    def run(st: SlamState, frames, num_kf: int):
+    def run(st: SlamState, frames, num_kf: int, first_frame: int = 0):
         frames = torch.as_tensor(frames).to(dev)
         # the previous accepted pose starts at the last keyframe's
         slot = torch.remainder(st.counters[0] - 1, cap)
@@ -185,13 +200,15 @@ def make_slam_track_scan(cfg: PislamConfig, fx: float, fy: float, cx: float, cy:
         next_frame = (lanes == 3).to(torch.int32)
         outs = []
         for i, frame in enumerate(frames):
-            feats, pts = frontend(frame)
+            f = first_frame + i
+            with m.timer("extract", f):
+                feats, pts = frontend(frame)
             if i == 0 and num_kf == 0:
-                st, out = bootstrap(st, feats, pts)
+                st, out = bootstrap(st, feats, pts, f)
             else:
                 # with two keyframes when the chunk starts, none of its
                 # frames can see exactly one
-                st, out = track(st, feats, pts, prev_R, prev_t, num_kf <= 1)
+                st, out = track(st, feats, pts, prev_R, prev_t, num_kf <= 1, f)
             # after the insert: counters[3] is the frame id
             st = st._replace(counters=st.counters + next_frame)
             prev_R, prev_t = out[0], out[1]

@@ -32,6 +32,7 @@ from ..frontend import Features, OrbExtractor
 from ..geometry import camera, ransac
 from ..ops import kernels
 from ..ops.pyramid import build_pyramid
+from ..utils.metrics import NullMetrics
 
 
 class VOState(NamedTuple):
@@ -199,12 +200,14 @@ def _initial_state(feats, pts, generator) -> VOState:
 
 
 class _Frontend:
-    """frame (H, W) uint8 -> (Features, (K, 2) normalised points) on a device."""
+    """frame (H, W) uint8 -> (Features, (K, 2) normalised points) on a device.
+    The image path's pyramid is the span ``pyramid`` of ``metrics``."""
 
     def __init__(self, cfg: PislamConfig, fx, fy, cx, cy, dist, device,
-                 ops: kernels.KernelSet, features_fn=None):
+                 ops: kernels.KernelSet, features_fn=None, metrics=None):
         pc = cfg.pyramid
         self.cfg = cfg
+        self.metrics = metrics if metrics is not None else NullMetrics()
         self.device = torch.device(device)
         self.intrinsics = (float(fx), float(fy), float(cx), float(cy))
         self.dist = tuple(dist) if dist is not None else None
@@ -219,8 +222,10 @@ class _Frontend:
 
     def __call__(self, frame):
         if self.image_input:
-            frame = torch.as_tensor(frame).to(self.device)
-            feats = self.extract(build_pyramid(frame, self.cfg.pyramid))
+            with self.metrics.timer("pyramid"):
+                frame = torch.as_tensor(frame).to(self.device)
+                pyramid = build_pyramid(frame, self.cfg.pyramid)
+            feats = self.extract(pyramid)
         else:
             feats = self.extract(frame)
         return feats, normalise_points(feats, *self.intrinsics, self.level_rows,
@@ -267,14 +272,15 @@ class VisualOdometry:
     """Monocular VO driver. Intrinsics in pixels at pyramid level 0.
 
     ``features_fn`` replaces the image frontend: it maps whatever
-    ``process`` is given to ``Features`` on ``device``.
+    ``process`` is given to ``Features`` on ``device``. ``metrics`` takes
+    the frontend's ``pyramid`` span.
     """
 
     def __init__(self, cfg: PislamConfig, fx: float, fy: float, cx: float,
-                 cy: float, features_fn=None, dist=None, device="cuda"):
+                 cy: float, features_fn=None, dist=None, device="cuda", metrics=None):
         self.cfg = cfg
         self.frontend = _Frontend(cfg, fx, fy, cx, cy, dist, device, kernels.HOPPER,
-                                  features_fn)
+                                  features_fn, metrics)
         self.device = self.frontend.device
 
     def init(self, frame, seed: int = 0) -> VOState:

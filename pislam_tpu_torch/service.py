@@ -131,11 +131,13 @@ def _parser() -> argparse.ArgumentParser:
                          "command resumes from the last one")
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--metrics", action="store_true",
-                    help="per-frame JSON telemetry on stderr. On the card the "
-                         "stage timers measure host time (the launches a stage "
-                         "makes and the host reads that end it): nothing "
-                         "synchronizes, so the card's own time per stage is "
-                         "not in them")
+                    help="per-frame JSON telemetry on stderr. The stage timers "
+                         "are spans (utils/metrics.py): each holds the host time "
+                         "of its stage, the launches it makes and the waits on "
+                         "the card inside it; nothing synchronizes, so the card's "
+                         "own time per stage is not in them. While torch.profiler "
+                         "runs, every span is also recorded with its start, end, "
+                         "parent and frame on the profiler's clock")
     ap.add_argument("--no-loop-close", action="store_true")
     ap.add_argument("--loop-every", type=int, default=0,
                     help="attempt loop closure every N inserted keyframes "

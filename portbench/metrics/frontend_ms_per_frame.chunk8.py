@@ -1,0 +1,16 @@
+"""Host ms a frame in the frontend over the traced chunk-8 window: the
+program's ``extract`` spans (the pyramid, K1/K2/``orb_describe`` and the
+keypoints' normalisation, inside the chunk scan), from ``spans.py``. A
+traced-window ms: the profiler slows the host about 2.3x, so it compares
+with other traced readings, never with ``frames_per_s``."""
+
+from portbench import spans
+
+LAYER = "Frontend"
+UNIT = "ms/frame"
+BETTER = "lower"
+MOVES = "frames_per_s"
+
+
+def read(ctx):
+    return spans.per_frame_ms(ctx, spans.STAGES["frontend"])
