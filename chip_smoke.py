@@ -9,8 +9,8 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
 1. device: the card's name and power limit (nvidia-smi); no card, no run.
-2. build: nvcc compiles the eleven Hopper kernels from the eleven .cu sources
-   of pislam_tpu_torch/csrc, one process per source, all at once; the
+2. build: nvcc compiles the Hopper kernels from the twelve .cu sources of
+   pislam_tpu_torch/csrc, one process per source, all at once; the
    build's seconds, each kernel's registers and shared memory, and the count
    of IGMMA (int8 wgmma) instructions in the library's SASS.
 3. kernels: K1-K4, orb_describe (K3 + K4 in one launch), K4's atan2 bins,
@@ -48,6 +48,12 @@ prints no result line):
    K1 = 65 and 127, K2 no multiple of the 128-column tile, and 1 and 4
    descriptor words; K5 on two streams at once, each its own merge state;
    K5 at K1 = 65,537 and 70,000 x K2 = 2048 (two launches, merged).
+   motion_only_ba (every Gauss-Newton iteration in one launch) on
+   tests/pnp_cases.py's cases (map tracking's, relocalisation's and VO's
+   parameters, N = 0, 1, 1001, 2000 and 3000, all invalid, behind the
+   camera, beyond the Huber corner) against its plain version on the card,
+   within the cases' tolerances (sums in another order), two launches
+   bit-equal.
    K1 and K2 also at the default config's pyramids of a KITTI (1241x376:
    555,520 keys) and a 720p frame (1,062,400 keys), K1 under each tile, K2,
    whose keys stay in device memory, at k = 512, 2048 and 8192; both timed
@@ -84,8 +90,8 @@ prints no result line):
 7. chunk path, the main path: KeyframeSLAM.process_chunk in chunks of 8
    over the four sequences at full length, with exact launch counts (K1,
    K2, orb_describe once per frame plus once per chunk that ends lost; K5
-   twice per tracked frame plus the boundary relocalisations'), each ATE
-   below max(2.5 x phase 6's, 0.15) and ms/frame beside phase 6's; chunk 1
+   twice and motion_only_ba once per tracked frame plus the boundary
+   relocalisations'), each ATE below max(2.5 x phase 6's, 0.15) and ms/frame beside phase 6's; chunk 1
    against process on eval_seq (Huber off, bootstrap_model_select off and
    on), step by step from process's states with its draws: the same
    decisions, inliers and counters, poses within 5e-2 (free runs printed); the
@@ -142,7 +148,8 @@ prints no result line):
    the card's name and power limit on every line.
 
 The line before the last is {"kernels": [...]}, the last line is
-{"ok": true, "device": {...}}. Imports torch, numpy and the port only.
+{"ok": true, "device": {...}}. Imports torch, numpy, the port and
+tests/pnp_cases.py (numpy) only.
 """
 
 from __future__ import annotations
@@ -189,6 +196,11 @@ SCALAR_OPS_S = 67e12
 # ring loads and 32 compares and the arc test, Harris's gradients, products,
 # 6x6 window sums and score, the 3x3 NMS, the encode and the 2x2 max.
 K1_OPS_PER_PIXEL = 100
+# motion-only BA's float operations per point and iteration, counted in
+# csrc/motion_only_ba.cu's accumulate(): the camera point (15), residual, norm
+# and Huber weight (~14), the Jacobian (~16), and the 27 weighted products and
+# sums (~105)
+PNP_FLOPS_PER_POINT = 150
 # the kernels of the default (fused, sorted BRIEF) frontend's VO and SLAM paths;
 # K3 and K4 run there inside orb_describe, and alone on no path of it
 FUSED_PATH_KERNELS = ("fused_frontend_codes", "topk_keys", "orb_describe", "match_reduce")
@@ -641,6 +653,63 @@ def kernel_phase(dev, pyramids, cfgs):
           f"sweep of "
           f"{m10.numel()} moment pairs bit-exact")
     return errs, rows, feats
+
+
+def pnp_cases():
+    """tests/pnp_cases.py (numpy only): motion-only BA's seeded cases and the
+    tolerances its kernel is held to against the plain version."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import pnp_cases as cases
+    return cases
+
+
+def pnp_args(dev, n):
+    """Motion-only BA at map tracking's parameters on n seeded points."""
+    cases = pnp_cases()
+    p = cases.MAP_TRACK
+    return (*(torch.from_numpy(a).to(dev) for a in cases.make_case(n, 7)), p["iters"],
+            p["huber"], p["inlier_threshold"], p["damping"])
+
+
+def pnp_bound(n: int, iters: int) -> tuple[float, str]:
+    """Its least time by bytes or operations: R0, t0 and each point's xyz, uv
+    and valid in; R, t, the costs, the inlier flags and count out. The chain
+    of dependent iterations, not this, is what bounds the kernel."""
+    return bound_ms(48 + 21 * n + 48 + 4 * iters + n + 8,
+                    (PNP_FLOPS_PER_POINT * n * iters, SCALAR_OPS_S))
+
+
+def pnp_phase(dev) -> float:
+    """Motion-only BA on every case of tests/pnp_cases.py (map tracking's,
+    relocalisation's and VO's parameters; N = 0, 1, 1001, 2000, 3000; all
+    invalid, points behind the camera and beyond the Huber corner) against
+    its plain version on the card, within the cases' tolerances, two
+    launches bit-equal. Returns the largest |R, t difference|."""
+    from pislam_tpu_torch.backend import pnp
+    from pislam_tpu_torch.ops import kernels
+
+    cases = pnp_cases()
+    worst = 0.0
+    for name in cases.CASES:
+        arrays, params = cases.case(name)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        before = pnp.motion_only_ba_kernel.launches
+        got, again = (pnp.motion_only_ba(*args, **params) for _ in range(2))
+        if pnp.motion_only_ba_kernel.launches - before != 2:
+            raise AssertionError(f"motion_only_ba {name}: not one launch a call")
+        want = pnp.motion_only_ba_plain(*args, **params)
+        differ = [k for k in want if not torch.equal(got[k], again[k])]
+        bad = cases.mismatches({k: v.cpu().numpy() for k, v in got.items()},
+                               {k: v.cpu().numpy() for k, v in want.items()}, arrays)
+        if differ or bad:
+            raise AssertionError(f"motion_only_ba {name}: {bad}; launches differ in {differ}")
+        worst = max(worst, *(float((got[k] - want[k]).abs().max()) for k in ("R", "t")))
+    print(f"phase kernels: motion_only_ba on {len(cases.CASES)} cases "
+          f"({', '.join(cases.CASES)}) within R/t {cases.POSE_TOL:g} (N = 1: "
+          f"{cases.UNDERDETERMINED_POSE_TOL:g}), inliers {cases.INLIER_TOL}, costs "
+          f"{cases.COST_RTOL:g} of the plain version on the card (largest R/t difference "
+          f"{worst:.3g}); two launches bit-equal; one launch a call")
+    return worst
 
 
 def describe_bound(pyr, codes, valid, angles, words) -> tuple[float, str]:
@@ -1568,17 +1637,22 @@ def adopt(cpu, snap):
     cpu._prev_pose, cpu._culled_slots = prev_pose, set(culled)
 
 
-def count_plain_k5():
-    """Counts calls of K5's plain version (the CPU's matcher calls)."""
+def count_plain(*names):
+    """Counts calls of the named kernels' plain versions (the CPU's calls of
+    K5 and of motion-only BA), by name."""
     from pislam_tpu_torch.ops import kernels
-    plain, calls = kernels.match_reduce.plain, [0]
+    by_name = {k.__name__: k for k in kernels.COUNTED}
+    calls, saved = dict.fromkeys(names, 0), {n: by_name[n].plain for n in names}
 
-    def counting(*args):
-        calls[0] += 1
-        return plain(*args)
+    def counting(name):
+        def call(*args):
+            calls[name] += 1
+            return saved[name](*args)
+        return call
 
-    kernels.match_reduce.plain = counting
-    return calls, lambda: setattr(kernels.match_reduce, "plain", plain)
+    for n in names:
+        by_name[n].plain = counting(n)
+    return calls, lambda: [setattr(by_name[n], "plain", p) for n, p in saved.items()]
 
 
 def step_against_cpu(cpu, draws, snap, after, frame, want, first_draw, last_draw):
@@ -1613,12 +1687,12 @@ def step_against_cpu(cpu, draws, snap, after, frame, want, first_draw, last_draw
 def closure_against_cpu(cpu, draws, snap, first_draw, want, want_post):
     """close_loop on the CPU from the card's snapshot before it, with the
     card's draws: the same loop, branch and matcher calls. Returns
-    (mismatches, the CPU's K5 calls, its closure, max |keyframe position
-    diff|); costs and positions come out of global BA and are printed, not
-    held (ba_audit holds BA's arithmetic)."""
+    (mismatches, the CPU's K5 and motion-only BA calls by name, its closure,
+    max |keyframe position diff|); costs and positions come out of global BA
+    and are printed, not held (ba_audit holds BA's arithmetic)."""
     adopt(cpu, snap)
     draws.queue = [d.cpu() for d in draws.log[first_draw:]]
-    calls, restore = count_plain_k5()
+    calls, restore = count_plain("match_reduce", "motion_only_ba")
     try:
         got = cpu.close_loop(min_matches=40, exclude_recent=3)
     finally:
@@ -1626,7 +1700,7 @@ def closure_against_cpu(cpu, draws, snap, first_draw, want, want_post):
     bad = [f"{k} {got[k]} vs card {want[k]}" for k in ("loop", "used_graph")
            if got[k] != want[k]]
     d_pos = float(np.abs(cpu.keyframe_positions() - want_post).max())
-    return bad, calls[0], got, d_pos
+    return bad, calls, got, d_pos
 
 
 class Recorder:
@@ -1740,9 +1814,11 @@ def slam_path(dev, seqs, card):
     port's main path. Every launch count is exact: K1, K2 and orb_describe
     once per frame (K3 and K4 never), K5
     once per tracked frame and once more per map-tracked frame (Metrics),
-    and in each closure as often as the CPU calls K5's plain version on the
-    same closure. Then the CPU replays the run step by step: every frame from
-    the card's state before it with the card's RANSAC draws
+    motion-only BA once per map-tracked frame and as often as the
+    relocalisations launch it, and in each closure K5 and motion-only BA as
+    often as the CPU calls their plain versions on the same closure. Then
+    the CPU replays the run step by step: every frame from the card's state
+    before it with the card's RANSAC draws
     (step_against_cpu), and the closure from the card's state before it
     (closure_against_cpu); every BA and pose-graph solve the card made is
     audited from its own inputs (ba_audit, pose_graph_audit). No frame may be
@@ -1774,6 +1850,7 @@ def slam_path(dev, seqs, card):
             metrics = Metrics(sink=lambda line: None)
             slam = make_slam(cfg, intr, dev, metrics,
                              record=features if name == "eval_seq" else None)
+            reloc = Wrap(slam, "_relocalise_feats").launches
             draws.log, draws.queue, bas.calls, graphs.calls = [], None, [], []
             snaps, first, outs = [], [], []
             kernels.reset_launch_counts()
@@ -1806,7 +1883,9 @@ def slam_path(dev, seqs, card):
 
             # launches: exact per frame, per map-tracked frame, per closure
             n_k5 = stages.get("calls.track", 0) + stages.get("calls.map_track", 0)
-            want = {k: len(frames) for k in FUSED_PATH_KERNELS} | {"match_reduce": n_k5}
+            n_pnp = stages.get("calls.map_track", 0) + reloc.get("motion_only_ba", 0)
+            want = {k: len(frames) for k in FUSED_PATH_KERNELS} | {"match_reduce": n_k5,
+                                                                   "motion_only_ba": n_pnp}
             for k, n in track_launches.items():
                 if n != want.get(k, 0):
                     failures.append(f"{name}: {k} launched {n} times while tracking, "
@@ -1822,10 +1901,10 @@ def slam_path(dev, seqs, card):
                                                    outs[i], first[i], first[i + 1])
                 d_pose, d_store, d_inl = max(d_pose, dp), max(d_store, ds), max(d_inl, di)
                 bad_steps += [f"frame {i}: {b}" for b in bad]
-            bad, cpu_k5, cpu_closure, d_pos = closure_against_cpu(
+            bad, cpu_calls, cpu_closure, d_pos = closure_against_cpu(
                 cpu, draws, snaps[-1], first[-1], closure, post)
             bad += [f"{k} launched {n} times in close_loop" for k, n in close_launches.items()
-                    if n != (cpu_k5 if k == "match_reduce" else 0)]
+                    if n != cpu_calls.get(k, 0)]
             bad_ba, worst, backward, n_ba = ba_audit(bas.calls)
             bad_graph, d_graph = pose_graph_audit(graphs)
             t_cpu = time.perf_counter() - t0
@@ -1834,8 +1913,9 @@ def slam_path(dev, seqs, card):
             print(f"phase SLAM {name} card vs CPU: {len(frames)} steps from the card's state "
                   f"with its draws, {len(bad_steps)} mismatching (decisions, counters, RANSAC "
                   f"calls; frame poses within {d_pose:.3g}, tolerance {SLAM_POSE_TOL}; inliers "
-                  f"within {d_inl}, tolerance {INLIER_TOL}); close_loop: loop, branch and "
-                  f"{cpu_k5} K5 calls {'identical' if not bad else 'DIFFER'}; {n_ba} BAs' first "
+                  f"within {d_inl}, tolerance {INLIER_TOL}); close_loop: loop, branch, "
+                  f"{cpu_calls['match_reduce']} K5 and {cpu_calls['motion_only_ba']} motion-only "
+                  f"BA calls {'identical' if not bad else 'DIFFER'}; {n_ba} BAs' first "
                   f"step at most {worst:.3g}x the CPU float32's error against float64 (limit "
                   f"{BA_ERR_FACTOR:g}x + {BA_ERR_FLOOR:g}), dense solves' backward error "
                   f"{backward:.3g}; {len(graphs.calls)} pose graphs within {d_graph:.3g}; not "
@@ -1852,6 +1932,8 @@ def slam_path(dev, seqs, card):
                          "decisions": [decision(o) for o in outs], "traj": traj, "post": post,
                          "state": slam.state, "counters": slam.state.counters.cpu(),
                          "k5": track_launches["match_reduce"] + close_launches["match_reduce"],
+                         "pnp": (track_launches["motion_only_ba"]
+                                 + close_launches["motion_only_ba"]),
                          "loop_survives": closure["loop"] in surviving,
                          "lost": slam.frames_lost, "reloc": slam.relocalisations,
                          "t_track": t_track, "t_close": t_close, "frames": len(frames),
@@ -1916,11 +1998,11 @@ def slam_unfused(dev, seqs, default):
             raise AssertionError(f"unfused SLAM frame {i}: Features differ from the default")
     if len(features) != len(frames) or slam.keyframe_frames != want_kf:
         raise AssertionError(f"unfused SLAM: keyframes {slam.keyframe_frames}, default {want_kf}")
-    # per frame K6, K2 and orb_describe, and no other kernel but K5 (whose
-    # count the tracking decides)
+    # per frame K6, K2 and orb_describe, and no other kernel but K5 and
+    # motion-only BA (whose counts the tracking decides)
     per_frame = ("reduce_codes_4x", "topk_keys", "orb_describe")
     if any(n != (len(frames) if k in per_frame else 0)
-           for k, n in launches.items() if k != "match_reduce"):
+           for k, n in launches.items() if k not in ("match_reduce", "motion_only_ba")):
         raise AssertionError(f"unfused SLAM: launches {launches}")
     print(f"phase SLAM unfused eval_seq: {len(frames)} frames' Features and the keyframes "
           f"{slam.keyframe_frames} identical to the default run; launches "
@@ -2038,8 +2120,9 @@ def chunk_path(dev, seqs, card, slam_res):
     relocalise); K5 twice per tracked frame (the keyframe match, ungated,
     and map tracking, gated, which the scan runs on every tracked frame
     and selects on the device) plus what the boundary relocalisations
-    launch; every other kernel never. ATE held to the per-frame path's of
-    phase 6 (tests/test_slam_scan.py's rule); ms/frame on the host clock to
+    launch; motion-only BA once per tracked frame (map tracking) plus the
+    relocalisations'; every other kernel never. ATE held to the per-frame
+    path's of phase 6 (tests/test_slam_scan.py's rule); ms/frame on the host clock to
     a synchronize, beside phase 6's. Returns the launches, and each
     sequence's ms/frame and ATE."""
     from pislam_tpu_torch import evaluation
@@ -2064,6 +2147,7 @@ def chunk_path(dev, seqs, card, slam_res):
         extra = metrics.snapshot().get("calls.relocalise", 0)
         want = {k: len(frames) + extra for k in FUSED_PATH_KERNELS}
         want["match_reduce"] = 2 * (len(frames) - 1) + reloc.get("match_reduce", 0)
+        want["motion_only_ba"] = len(frames) - 1 + reloc.get("motion_only_ba", 0)
         for k, n in got.items():
             launches[k] += n
             if n != want.get(k, 0):
@@ -2598,14 +2682,16 @@ def run_service(argv):
 def service_launches(label, report, launches, wraps):
     """The chunk path's rule, exact: K1, K2 and orb_describe once per frame
     this run processed, plus once per chunk that ended lost (its last frame
-    is extracted again to relocalise); K5 twice per tracked frame, plus what
-    the relocalisations and the closures launched; every other kernel 0."""
+    is extracted again to relocalise); K5 twice and motion-only BA once per
+    tracked frame, plus what the relocalisations and the closures launched;
+    every other kernel 0."""
     frames = report["frames"] - report["resumed_at"]
     tracked = frames - (1 if report["resumed_at"] == 0 else 0)
     lost = wraps["reloc"].calls
     want = {k: frames + lost for k in FUSED_PATH_KERNELS}
-    want["match_reduce"] = (2 * tracked + wraps["reloc"].launches.get("match_reduce", 0)
-                            + wraps["close"].launches.get("match_reduce", 0))
+    for k, per_frame in (("match_reduce", 2), ("motion_only_ba", 1)):
+        want[k] = (per_frame * tracked + wraps["reloc"].launches.get(k, 0)
+                   + wraps["close"].launches.get(k, 0))
     bad = [f"{k} launched {n} times, expected {want.get(k, 0)}"
            for k, n in launches.items() if n != want.get(k, 0)]
     if bad:
@@ -2806,7 +2892,8 @@ def service_phase(dev, seqs, card, chunk_res, vga):
         repl, _, walll, gotl, _ = run_service(
             ["--seq", seq4, "--localization-only", "--map-in", str(d1)])
         want = {k: len(frames4) for k in ("fused_frontend_codes", "topk_keys", "orb_describe")}
-        bad = [k for k, n in gotl.items() if k != "match_reduce" and n != want.get(k, 0)]
+        bad = [k for k, n in gotl.items()
+               if k not in ("match_reduce", "motion_only_ba") and n != want.get(k, 0)]
         if (bad or repl["keyframes"] != stored.num_keyframes
                 or repl["landmarks"] != stored.num_landmarks
                 or repl["loop_closed_to_kf"] != -1 or repl["resumed_at"] != 0):
@@ -2978,9 +3065,12 @@ def dist_world1(dev, seqs, card, slam_res, k5_cases, vga, track):
         if max(d_traj, d_post) > DIST_TRAJ_TOL:
             raise AssertionError(f"sharded SLAM: trajectory within {d_traj}, keyframes "
                                  f"within {d_post}")
-        # K1, K2 and orb_describe once per frame; K5 as phase 6's run launched it
-        # (once per tracked and once more per map-tracked frame, and the closure's)
-        want = {k: len(frames) for k in FUSED_PATH_KERNELS} | {"match_reduce": ref["k5"]}
+        # K1, K2 and orb_describe once per frame; K5 and motion-only BA as phase
+        # 6's run launched them (K5 once per tracked and once more per
+        # map-tracked frame, motion-only BA once per map-tracked frame, and the
+        # closure's)
+        want = {k: len(frames) for k in FUSED_PATH_KERNELS} | {"match_reduce": ref["k5"],
+                                                               "motion_only_ba": ref["pnp"]}
         if any(n != want.get(k, 0) for k, n in launches.items()):
             raise AssertionError(f"sharded SLAM launches {launches}, expected {want}")
 
@@ -3341,6 +3431,9 @@ def main():
 
     # phase 3: each kernel against its plain version
     errs, rows, feats0 = kernel_phase(dev, pyramids, cfgs)
+    errs["motion_only_ba"] = pnp_phase(dev)
+    for label, n in (("eval", 1000), ("vga", 2000)):
+        rows[label]["motion_only_ba"] = (pnp_args(dev, n), None, pnp_bound(n, 8))
     odo = pt.VisualOdometry(vo_config(), *seqs["eval_seq"][1], device=dev)
     pairs = [odo.frontend(frames["eval"][i]) for i in (0, 1)]
     errs["match_reduce"], k5_cases = k5_phase(dev, [f for f, _ in pairs], feats0["vga"],
@@ -3394,11 +3487,11 @@ def main():
     for label in cfgs:
         a5 = k5_cases[k5_shapes[label]]
         rows[label]["match_reduce"] = (a5, None, k5_bound(a5))
-    times = {}
+    times, by_name = {}, {k.__name__: k for k in kernels.COUNTED}
     for label in cfgs:
         times[label] = {}
         for name, (args, library, (b_ms, b_by)) in rows[label].items():
-            kern = getattr(kernels, name)
+            kern = by_name[name]
             k_ms = time_ms(lambda: kern(*args))
             p_ms = time_ms(lambda: kern.plain(*args))
             l_ms = time_ms(library) if library else None
@@ -3406,7 +3499,9 @@ def main():
             times[label][name] = (k_ms, p_ms, l_ms, b_ms, b_by)
             lib_txt = (f", library {l_ms:.4f} ms (device {device_us(library)[0]:.2f} us)"
                        if library else "")
-            print(f"time kernel {name} at {label} shapes: {k_ms:.4f} ms (device "
+            shapes = (f"N = {args[2].shape[0]}, {args[5]} iterations" if name == "motion_only_ba"
+                      else f"{label} shapes")
+            print(f"time kernel {name} at {shapes}: {k_ms:.4f} ms (device "
                   f"{d_us:.2f} us, {d_n:g} device kernels per call), plain {p_ms:.4f} ms"
                   f"{lib_txt}, bound {b_ms * 1e3:.3f} us ({b_by}) [{card}]")
     for shape in ("512x8192 gated", "2048x16384", "512x16384 gated"):
@@ -3425,15 +3520,17 @@ def main():
     slam_profile(dev, seqs, card)
     chunk_syncs(dev, seqs, card)
 
-    # the kernels at the eval shapes, each with its launches on its path: the
-    # chunk path for K1, K2, orb_describe and K5 (phase 6's per-frame counts
-    # are on its launches line), SLAM with the unfused frontend for K6, the
+    # the kernels at the eval shapes (motion-only BA at 1000 points), each
+    # with its launches on its path: the chunk path for K1, K2, orb_describe,
+    # K5 and motion-only BA (phase 6's per-frame counts are on its launches
+    # line), SLAM with the unfused frontend for K6, the
     # dense BRIEF extraction for orb_describe_dense; K3, K4 and K4d alone,
     # K3c and K3a run on no path
     print(f"SLAM per-frame path launches: {json.dumps(slam_launches)}")
     paths = {name: (f"SLAM chunks of {CHUNK}", launches) for name in FUSED_PATH_KERNELS}
     paths["reduce_codes_4x"] = ("SLAM unfused", unfused_launches)
     paths["orb_describe_dense"] = ("extraction dense BRIEF", variant_launches["dense BRIEF"])
+    paths["motion_only_ba"] = (f"SLAM chunks of {CHUNK}", launches)
     for name in ("gather_windows_packed", "orb_select_bits", "orb_select", "realign_windows",
                  "pack_row_strips"):
         paths[name] = ("none", {name: 0})

@@ -269,6 +269,17 @@ def cull_landmarks(store: KeyframeStore, lmap: LandmarkMap, obs: ObservationTabl
     return new_map, new_obs
 
 
+def drop_observations_behind(store: KeyframeStore, lmap: LandmarkMap, obs: ObservationTable):
+    """Invalidate the observation rows of valid keyframes and landmarks whose
+    landmark lies at depth <= 1e-6 in the keyframe at the CURRENT poses.
+    Such a row measures nothing: its projection divides by the depth that BA
+    clamps to 1e-6. Returns (obs, the number of rows dropped)."""
+    kf, lm = obs.kf.long(), obs.lm.long()
+    z = torch.einsum("oj,oj->o", store.R[kf][:, 2], lmap.xyz[lm]) + store.t[kf][:, 2]
+    behind = obs.valid & store.valid[kf] & lmap.valid[lm] & (z <= 1e-6)
+    return obs._replace(valid=obs.valid & ~behind), behind.sum()
+
+
 def covisibility(store: KeyframeStore, lmap: LandmarkMap, obs: ObservationTable):
     """(F, F) int32 covisibility weights: shared-landmark counts between
     keyframe slots, from a dense (F, L) incidence matrix and one product

@@ -9,8 +9,14 @@ at the identity perturbation (``jax.jacfwd``); here it is written out, as
 Jacobian: the same derivative in a dozen launches per iteration, where
 ``torch.func.jacfwd``'s many small launches made this solve the largest
 stage of a SLAM frame on the card. The normal equations are solved with
-``torch.linalg.solve_ex``, which does not read its status back to the
-host.
+``torch.linalg.solve_ex``.
+
+That is ``motion_only_ba_plain``, which runs on the CPU. On a CUDA device
+``motion_only_ba`` is one launch of ``csrc/motion_only_ba.cu``
+(``motion_only_ba_kernel``, which ``ops.kernels.motion_only_ba`` launches and
+``ops.kernels.COUNTED`` counts): the plain version's ~800 launches a call,
+and the two reads of the solve's status that ``linalg_lu_solve`` makes on
+the host every iteration, were a third of a SLAM frame's host time.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry import se3
+from ..ops import kernels
 
 
 def _camera_points(R, t, xyz):
@@ -55,8 +62,18 @@ def motion_only_ba(R0, t0, xyz, uv, valid, iters: int = 8,
     R0 (3,3), t0 (3,): initial pose. xyz (N,3) world landmarks, uv (N,2)
     normalised observations, valid (N,) bool. Returns dict with R, t,
     inliers (N,) bool, num_inliers and costs (iters,). Behind-camera points
-    get zero weight.
+    get zero weight. ``motion_only_ba_plain`` on CPU tensors, one kernel
+    launch on CUDA ones.
     """
+    return motion_only_ba_kernel(R0, t0, xyz, uv, valid, iters, huber, inlier_threshold,
+                                 damping)
+
+
+def motion_only_ba_plain(R0, t0, xyz, uv, valid, iters: int = 8,
+                         huber: float = 5e-3, inlier_threshold: float = 6e-3,
+                         damping: float = 1e-6):
+    """``motion_only_ba`` in plain torch, on any device: Gauss-Newton with
+    the written-out Jacobian, iteration by iteration."""
     R, t = R0, t0
     eye6 = torch.eye(6, dtype=R0.dtype, device=R0.device)
     costs = []
@@ -78,3 +95,8 @@ def motion_only_ba(R0, t0, xyz, uv, valid, iters: int = 8,
     inl = valid & (z > 1e-6) & (torch.linalg.vector_norm(r, dim=1) < inlier_threshold)
     return {"R": R, "t": t, "inliers": inl, "num_inliers": inl.sum(),
             "costs": torch.stack(costs)}
+
+
+motion_only_ba_kernel = kernels.counted(kernels.hopper_kernel(
+    motion_only_ba_plain, "pislam_tpu_torch/csrc/motion_only_ba.cu",
+    "none: pislam_tpu/backend/pnp.py motion_only_ba is plain JAX")(kernels.motion_only_ba))

@@ -1190,8 +1190,10 @@ class KeyframeSLAM:
 
     def close_loop(self, min_matches: int = 40, exclude_recent: int = 3,
                    exclude_covisible_weight: int = 0):
-        """Production loop closure: detect + measure + fuse, then pick the
-        better of two closures by measurement. From the same snapshot: (A)
+        """Production loop closure: detect + measure + fuse, drop the
+        observation rows whose landmark lies behind its keyframe (which the
+        JAX package keeps), then pick the better of two closures by
+        measurement. From the same snapshot: (A)
         three rounds of global BA + landmark culling against the fused
         observations; (B) the pose graph over the loop edges first, then the
         same rounds. B wins only when its ``map_consistency`` over the frozen
@@ -1202,6 +1204,14 @@ class KeyframeSLAM:
             return {"loop": -1, "used_graph": False}
         idx, edges = det
         m = self.metrics
+        # A row whose landmark lies behind its keyframe would give global BA a
+        # residual of ~1e5 and a Jacobian of ~1e12 at the clamped depth: the
+        # LM steps of both branches, and so the branch, would rest on it.
+        st = self._st
+        obs, n_behind = kfs.drop_observations_behind(st.store, st.lmap, st.obs)
+        if int(n_behind):
+            self._st = st._replace(obs=obs)
+            m.count("loop_obs_behind_dropped", int(n_behind))
         snap = self.state
         obs_ref = tuple(_host(x) for x in (snap.obs.kf, snap.obs.lm, snap.obs.uv,
                                            snap.obs.valid))

@@ -49,6 +49,7 @@ SIGNATURES = {
     "pislam_realign_windows": (_P, _P, _P, _I, _P, _P),
     "pislam_pack_row_strips": (_P, _I, _I, _P, _P),
     "pislam_orb_describe": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
+    "pislam_motion_only_ba": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P),
     "pislam_device_limits": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     "pislam_empty": (_P,),
 }

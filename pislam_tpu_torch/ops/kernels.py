@@ -1,6 +1,7 @@
-"""The frontend's Hopper kernels, each beside its plain PyTorch version.
+"""The port's Hopper kernels, each beside its plain PyTorch version.
 
-The counterpart of ``pislam_tpu/ops/pallas_kernels.py``. Each wrapper takes
+The counterpart of ``pislam_tpu/ops/pallas_kernels.py`` (the frontend's and
+matching's kernels), and motion-only BA's kernel. Each wrapper takes
 its plain version for a tensor on the CPU and launches its CUDA kernel
 (``csrc/*.cu``, built by ``_build``) for a tensor on a CUDA device; any
 other device raises. There is no fallback: a kernel that fails to build or
@@ -137,6 +138,20 @@ K3c realign_windows      csrc/realign_windows.cu
     then lane c of half h issues its five 4-byte loads of column phi + c,
     rows 4h..4h+4, at once and stores four words, each one funnel shift,
     the composition of the TPU's rotate and shift rounds.
+PnP motion_only_ba       csrc/motion_only_ba.cu
+    Replaces no Pallas kernel: the JAX package's ``motion_only_ba``
+    (pislam_tpu/backend/pnp.py) is plain JAX that XLA compiles into one
+    program, where eager PyTorch made ~800 launches and two host reads of a
+    solve status a call (``backend/pnp.motion_only_ba_plain``). Bound: the
+    chain of dependent iterations, not bytes or operations (~22 KB in and
+    ~1.2 MFLOP at 1000 points and 8 iterations). Design: every iteration in
+    one block of 256 threads, each thread's points read through L1 every
+    pass (21 KB at 1000 points), its sums of J^T W J, J^T W r and the cost
+    reduced by xor shuffles and then over the warps in a fixed order (no
+    atomics: the same inputs give the same bits), the 6x6 solve by LU with
+    partial pivoting and the se3_exp update on one thread, the pose in
+    shared memory. The wrapper beside the plain version is
+    ``backend/pnp.motion_only_ba_kernel``.
 """
 
 from __future__ import annotations
@@ -978,6 +993,51 @@ def reduce_codes_4x(scored):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Motion-only BA: every Gauss-Newton iteration in one launch
+# ---------------------------------------------------------------------------
+
+def _check_motion_only_ba(R0, t0, xyz, uv, valid, iters: int):
+    """The kernel's inputs: float32 R0 (3, 3), t0 (3,), xyz (N, 3), uv (N, 2)
+    and bool valid (N,), contiguous, on R0's device; at least one iteration
+    (the plain version stacks the costs of its iterations)."""
+    dev = R0.device
+    _check(R0, "R0", torch.float32, 2, dev)
+    _check(t0, "t0", torch.float32, 1, dev)
+    _check(xyz, "xyz", torch.float32, 2, dev)
+    _check(uv, "uv", torch.float32, 2, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    n = xyz.shape[0]
+    if (R0.shape != (3, 3) or t0.shape != (3,) or xyz.shape != (n, 3) or uv.shape != (n, 2)
+            or valid.shape != (n,)):
+        raise ValueError(f"motion_only_ba: R0 {tuple(R0.shape)}, t0 {tuple(t0.shape)}, xyz "
+                         f"{tuple(xyz.shape)}, uv {tuple(uv.shape)}, valid {tuple(valid.shape)}: "
+                         "expects (3, 3), (3,), (N, 3), (N, 2), (N,)")
+    if iters < 1 or 3 * n >= 1 << 31:          # the kernel indexes xyz in int32
+        raise ValueError(f"motion_only_ba: iters={iters}, N={n}: needs iters >= 1, "
+                         "3 N < 2^31")
+
+
+def motion_only_ba(R0, t0, xyz, uv, valid, iters: int, huber: float, inlier_threshold: float,
+                   damping: float):
+    """The launch of ``csrc/motion_only_ba.cu``: ``backend/pnp.py``
+    ``motion_only_ba_plain``'s outputs from one launch on the current stream;
+    nothing is read back. ``backend/pnp.py`` wraps it beside its plain
+    version (``pnp.motion_only_ba_kernel``) and registers it in COUNTED."""
+    _check_motion_only_ba(R0, t0, xyz, uv, valid, iters)
+    dev, n = R0.device, xyz.shape[0]
+    R = torch.empty((3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty(3, dtype=torch.float32, device=dev)
+    costs = torch.empty(iters, dtype=torch.float32, device=dev)
+    inliers = torch.empty(n, dtype=torch.bool, device=dev)
+    num = torch.empty((), dtype=torch.int64, device=dev)
+    _call("pislam_motion_only_ba", dev, R0.data_ptr(), t0.data_ptr(), xyz.data_ptr(),
+          uv.data_ptr(), valid.data_ptr(), n, int(iters), float(huber),
+          float(inlier_threshold), float(damping), R.data_ptr(), t.data_ptr(),
+          costs.data_ptr(), inliers.data_ptr(), num.data_ptr())
+    return {"R": R, "t": t, "inliers": inliers, "num_inliers": num, "costs": costs}
+
+
 class KernelSet(NamedTuple):
     """The kernels of the SLAM path: K1, K2 and ``orb_describe`` of the
     default (fused, sorted BRIEF) frontend, K6 of the unfused one,
@@ -1004,9 +1064,16 @@ PLAIN = KernelSet(fused_frontend_codes_plain, topk_keys_plain,
                   gather_windows_packed_plain, orb_select_plain,
                   match_reduce_plain, reduce_codes_4x_plain, orb_select_bits_plain,
                   orb_describe_plain, orb_describe_dense_plain)
-# Every kernel with a launch count: the kernel set's, and K3c and K3a, which
-# no path runs.
-COUNTED = (*HOPPER, realign_windows, pack_row_strips)
+# Every kernel with a launch count: the kernel set's, K3c and K3a, which no
+# path runs, and those wrapped beside a plain version of a layer above this
+# one, which register with counted() (motion-only BA, backend/pnp.py).
+COUNTED = [*HOPPER, realign_windows, pack_row_strips]
+
+
+def counted(kernel: HopperKernel) -> HopperKernel:
+    """Adds a kernel wrapped outside this module to COUNTED."""
+    COUNTED.append(kernel)
+    return kernel
 
 
 def reset_launch_counts():

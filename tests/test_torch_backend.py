@@ -212,6 +212,27 @@ def test_map_queries_vs_jax(case):
 
 
 @pytest.mark.parametrize("case", MAPS)
+def test_drop_observations_behind(case):
+    """close_loop's cheirality step (the JAX package has none): exactly the
+    valid rows of valid keyframes and landmarks whose landmark lies at depth
+    <= 1e-6 in the keyframe lose their validity; nothing else changes."""
+    store, lmap, obs = _port_map(*MAPS[case]())
+    xyz = lmap.xyz.clone()
+    xyz[::3] *= -1.0                            # a third of the landmarks behind the cameras
+    lmap = lmap._replace(xyz=xyz)
+    got, n = tkfs.drop_observations_behind(store, lmap, obs)
+    kf, lm = obs.kf.numpy(), obs.lm.numpy()
+    z = (np.einsum("oj,oj->o", store.R.numpy()[kf][:, 2].astype(np.float64), lmap.xyz.numpy()[lm])
+         + store.t.numpy()[kf][:, 2])
+    behind = obs.valid.numpy() & store.valid.numpy()[kf] & lmap.valid.numpy()[lm] & (z <= 1e-6)
+    assert np.array_equal(got.valid.numpy(), obs.valid.numpy() & ~behind)
+    assert int(n) == int(behind.sum())
+    assert behind.any() and (obs.valid.numpy() & ~behind).any()
+    for name in ("kf", "lm", "uv"):
+        assert torch.equal(getattr(got, name), getattr(obs, name))
+
+
+@pytest.mark.parametrize("case", MAPS)
 def test_map_edits_vs_jax(case):
     """cull_one_keyframe, evict_stale_landmarks, compact_map."""
     jm = MAPS[case]()

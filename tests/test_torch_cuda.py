@@ -1,5 +1,6 @@
-"""The Hopper kernels on the card against their plain versions, bit-exact,
-and one SLAM run on the card against the CPU.
+"""The Hopper kernels on the card against their plain versions, bit-exact
+(motion-only BA within tests/pnp_cases.py's tolerances), and one SLAM run
+on the card against the CPU.
 
 These need a CUDA card and skip elsewhere; the distributed ones at the end
 need two or more cards (one NCCL rank per card, under torchrun). The card's
@@ -21,8 +22,10 @@ import pytest
 import torch
 
 import pislam_tpu_torch
+import pnp_cases
 from pislam_tpu_torch import (FrontendConfig, MatcherConfig, PislamConfig, PyramidConfig,
                               VOConfig)
+from pislam_tpu_torch.backend import pnp
 from pislam_tpu_torch.ops import brief, kernels, orientation
 from pislam_tpu_torch.ops.pyramid import build_pyramid
 
@@ -371,13 +374,14 @@ def test_frontend_on_card_matches_cpu(dev):
     kernels.reset_launch_counts()
     on_card = pislam_tpu_torch.make_extract_fn(cfg, device=dev)(pyr.to(dev))
     # one launch of each kernel of the sorted-BRIEF extraction (K3 and K4
-    # run inside orb_describe); K5 belongs to matching
+    # run inside orb_describe); K5 belongs to matching, motion-only BA to tracking
     assert kernels.launch_counts() == {"fused_frontend_codes": 1, "topk_keys": 1,
                                        "gather_windows_packed": 0, "orb_select": 0,
                                        "match_reduce": 0, "reduce_codes_4x": 0,
                                        "orb_select_bits": 0, "orb_describe": 1,
                                        "orb_describe_dense": 0,
-                                       "realign_windows": 0, "pack_row_strips": 0}
+                                       "realign_windows": 0, "pack_row_strips": 0,
+                                       "motion_only_ba": 0}
     _same(tuple(on_card), tuple(pislam_tpu_torch.make_extract_fn(cfg, device="cpu")(pyr)))
 
 
@@ -508,6 +512,27 @@ def test_k3a(dev, shape, offset):
     _same(kernels.pack_row_strips(img), kernels.pack_row_strips_plain(img.cpu()))
 
 
+@pytest.mark.parametrize("name", list(pnp_cases.CASES))
+def test_motion_only_ba(dev, name):
+    """Motion-only BA's kernel against ``motion_only_ba_plain`` on the card,
+    on the same numpy inputs: within tests/pnp_cases.py's tolerances (R, t
+    1e-5; inliers 2; costs 1e-5 relative: the kernel sums in another order
+    and solves by its own LU), two launches bit-equal (no atomics in its
+    sums), one launch a call, the plain version's dtypes and shapes."""
+    arrays, params = pnp_cases.case(name)
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    before = pnp.motion_only_ba_kernel.launches
+    got = pnp.motion_only_ba(*args, **params)
+    again = pnp.motion_only_ba(*args, **params)
+    assert pnp.motion_only_ba_kernel.launches - before == 2
+    want = pnp.motion_only_ba_plain(*args, **params)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], again[k]), k
+    host = {k: v.cpu().numpy() for k, v in got.items()}
+    assert not pnp_cases.mismatches(host, {k: v.cpu().numpy() for k, v in want.items()}, arrays)
+
+
 def test_slam_on_card_matches_cpu(dev, monkeypatch):
     """Four eval_seq frames of SLAM (the bootstrap keyframe, two tracked
     frames, then an insert with its windowed BA) on the card and on the CPU,
@@ -555,7 +580,8 @@ def test_slam_chunk_on_card_matches_cpu(dev, monkeypatch):
     """process_chunk over the same four eval_seq frames as one chunk, on the
     card and on the CPU, both drawing from one CPU generator: the same
     decisions, counters and keyframes, poses within 1e-3; on the card K1,
-    K2 and orb_describe once per frame and K5 twice per tracked frame."""
+    K2 and orb_describe once per frame, K5 twice and motion-only BA once per
+    tracked frame."""
     import dataclasses
 
     from pislam_tpu_torch import BAConfig, MapConfig
@@ -592,6 +618,7 @@ def test_slam_chunk_on_card_matches_cpu(dev, monkeypatch):
     for k in ("fused_frontend_codes", "topk_keys", "orb_describe"):
         assert n_card[k] == 4
     assert n_card["match_reduce"] == 6
+    assert n_card["motion_only_ba"] == 3          # map tracking on every tracked frame
 
 
 @pytest.fixture
