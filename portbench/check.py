@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from portbench import roofline
-from portbench.reference import orb, trajectory
+from portbench.reference import lens, orb, trajectory
 
 HERE = Path(__file__).resolve().parent
 
@@ -44,7 +44,7 @@ def reference_frontend(cfg: dict, device, precision: str = "exact") -> orb.Front
                         cfg["max_keypoints"], cfg["fast_threshold"], cfg["harris_threshold"],
                         border=16, words=8,
                         intrinsics=(cfg["fx"], cfg["fy"], cfg["cx"], cfg["cy"]),
-                        device=device, precision=precision)
+                        lens=lens.terms(cfg), device=device, precision=precision)
 
 
 def _np(x):

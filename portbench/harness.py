@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from portbench.reference import lens
 from portbench.scene import render
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -62,7 +63,8 @@ class Stream:
     crops, from the configuration's ``texture_seed``) and the trajectory
     are the cell's own, the same for every seed: the run's seed picks where
     in the lap the session starts (the same frames in another order) and,
-    in ``build_slam``, the program's RANSAC seed."""
+    in ``build_slam``, the program's RANSAC seed. A configuration's
+    ``lens`` bends each pixel's ray (``render.lens_rays``)."""
 
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         lap = mix["lap"]
@@ -82,8 +84,11 @@ class Stream:
         bg, fg, picks = render.texture_pair(photos, int(rng.integers(0, 2**63)),
                                             (h + 2 * my, w + 2 * mx), device, sc["gain"])
         self.textures = f"{source.name} frames {picks}"
+        terms = lens.terms(cfg)
+        rays = None if terms is None else render.lens_rays(
+            w, h, cfg["fx"], cfg["fy"], cfg["cx"], cfg["cy"], terms, device)
         scene = render.PlaneScene(w, h, cfg["fx"], cfg["fy"], cfg["cx"], cfg["cy"],
-                                  sc["z_bg"], sc["z_fg"], mx, my, bg, fg)
+                                  sc["z_bg"], sc["z_fg"], mx, my, bg, fg, rays)
 
         def dev(a):
             return torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -110,7 +115,8 @@ class Stream:
 
 def build_slam(cfg: dict, seed: int, device):
     """The service's KeyframeSLAM for a deployment: ``service.build_config``
-    with the file's frontend and camera values."""
+    with the file's frontend and camera values, and its lens as the port's
+    ``dist`` (as the service's ``--k1 --k2 --p1 --p2``)."""
     from pislam_tpu_torch.models.slam import KeyframeSLAM
     from pislam_tpu_torch.service import build_config
 
@@ -123,7 +129,7 @@ def build_slam(cfg: dict, seed: int, device):
     return KeyframeSLAM(pc, cfg["fx"], cfg["fy"], cfg["cx"], cfg["cy"],
                         keyframe_min_inliers=cfg["keyframe_min_inliers"],
                         keyframe_max_gap=cfg["keyframe_max_gap"], seed=seed,
-                        device=device)
+                        dist=lens.terms(cfg), device=device)
 
 
 class Session:

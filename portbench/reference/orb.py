@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import lens as lens_model
 from .brief_pattern import BRIEF_PATTERN
 
 RADIUS = 15
@@ -290,11 +291,15 @@ class Frame(NamedTuple):
 
 
 class Frontend:
-    """frame (h, w) uint8 -> ``Frame`` for one deployment's settings."""
+    """frame (h, w) uint8 -> ``Frame`` for one deployment's settings. With a
+    ``lens`` (k1, k2, p1, p2), the normalised points are undistorted by its
+    inverse solved to convergence in float64 (``lens.undistort``), then
+    rounded to float32."""
 
     def __init__(self, width: int, height: int, levels: int, inv_scale: float,
                  max_keypoints: int, fast_threshold: int, harris_threshold: int,
-                 border: int, words: int, intrinsics, device, precision: str = "exact"):
+                 border: int, words: int, intrinsics, device, precision: str = "exact",
+                 lens=None):
         self.sizes = level_sizes(width, height, levels, inv_scale)
         total = sum(h for _, h in self.sizes)
         self.padded_height = -(-total // 8) * 8
@@ -315,6 +320,7 @@ class Frontend:
         self.centre = torch.where(lane == 0, cx, cy).to(torch.float32)
         self.focal = torch.where(lane == 0, fx, fy).to(torch.float32)
         self.precision = precision
+        self.lens = lens
 
     def pyramid(self, frame):
         return build_pyramid(frame, self.sizes, self.padded_height, self.stride,
@@ -332,7 +338,12 @@ class Frontend:
         scale = self.scales[lvl]
         uv = torch.stack([xs.to(torch.float32) * scale,
                           (ys - self.rows[lvl]).to(torch.float32) * scale], dim=1)
-        return Frame(codes, valid, angles, desc, (uv - self.centre) / self.focal)
+        pts = (uv - self.centre) / self.focal
+        if self.lens is not None:
+            p = pts.detach().cpu().numpy()
+            x, y = lens_model.undistort(p[:, 0], p[:, 1], *self.lens)
+            pts = torch.as_tensor(np.stack([x, y], 1).astype(np.float32), device=pts.device)
+        return Frame(codes, valid, angles, desc, pts)
 
 
 # -- matching ---------------------------------------------------------------

@@ -72,11 +72,17 @@ def _sync(device):
 
 
 def run_tracking(slam, sess, mix, seconds, trace_cls, device):
-    """Warm-up and the window of a chunk or frame mix."""
+    """Warm-up and the window of a chunk or frame mix. Besides the metrics,
+    ``info`` says what the window held: the keyframes and landmarks held as
+    it opened, the keyframes inserted in it, and the median step with and
+    without an insert, so that a run that reads slower can be told to have
+    done more work or the same work in more time."""
     while sess.k < mix["warmup_frames"]:
         sess.step()
     _sync(device)
-    first, lost0 = sess.k, slam.frames_lost
+    first, lost0, kf0 = sess.k, slam.frames_lost, slam.keyframes_inserted
+    info = {"keyframes_held_at_open": slam.num_keyframes,
+            "landmarks_at_open": slam.num_landmarks}
     out = {"setup_s": time.perf_counter() - T_START, "first": first}
     if trace_cls is not None:
         with trace_cls() as tr:
@@ -86,23 +92,32 @@ def run_tracking(slam, sess, mix, seconds, trace_cls, device):
         out["ctx"] = {"trace": tr, "frames": sess.k - first}
     else:
         lat, done, quarters = [], 0, [0, 0, 0, 0]
+        steps = {True: [], False: []}       # step seconds, with and without an insert
         start = time.perf_counter()
         end = start + seconds
         while True:
             t_in = time.perf_counter()
             if t_in >= end:
                 break
+            kf = slam.keyframes_inserted
             n, dt = sess.step()
             if t_in + dt <= end:          # poses on the host inside the window
                 lat.extend([dt] * n)
                 done += n
                 quarters[min(3, int(4 * (t_in + dt - start) / seconds))] += n
+                steps[slam.keyframes_inserted > kf].append(dt)
         out["frames_per_s"] = done / seconds
         out["frame_p95_ms"] = quantile95(lat) * 1e3 if lat else None
         if lat:
-            out["info"] = {"latency_median_ms": statistics.median(lat) * 1e3,
-                           "latency_max_ms": max(lat) * 1e3,
-                           "frames_per_s_by_quarter": [4 * q / seconds for q in quarters]}
+            info.update({"latency_median_ms": statistics.median(lat) * 1e3,
+                         "latency_max_ms": max(lat) * 1e3,
+                         "frames_per_s_by_quarter": [4 * q / seconds for q in quarters]})
+        for insert, name in ((True, "step_ms_median_insert"),
+                             (False, "step_ms_median_no_insert")):
+            if steps[insert]:
+                info[name] = statistics.median(steps[insert]) * 1e3
+    info["keyframes_inserted"] = slam.keyframes_inserted - kf0
+    out["info"] = info
     out["attempted"] = sess.k - first
     out["failed"] = slam.frames_lost - lost0
     return out

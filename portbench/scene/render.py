@@ -10,7 +10,9 @@ x_c = R_z(roll) (X - c), c = (sx, 0, dz).
 
 The same model as the JAX package's ``utils/render.py`` (a numpy renderer
 that the benchmark does not import), rewritten in torch so that a whole lap
-of frames is rendered on the card in a few large calls during set-up.
+of frames is rendered on the card in a few large calls during set-up. Where
+the configuration states a lens, each pixel samples the scene along its
+ideal ray (``lens_rays``), so that the frame is what that lens would see.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import math
 
 import numpy as np
 import torch
+
+from portbench.reference import lens
 
 
 def bilinear_sample(tex, xs, ys):
@@ -43,10 +47,14 @@ class PlaneScene:
 
     ``bg`` and ``fg`` are float32 textures of shape (H + 2 margin_y,
     W + 2 margin_x) on the rendering device: the frame-0 view of each plane
-    with a margin for the excursions of the trajectory."""
+    with a margin for the excursions of the trajectory. ``rays``, where a
+    lens bends them, is a pair of (H, W) float32 tensors: each pixel's ideal
+    offset from the principal point, in pixels; without it a pixel's ray is
+    its own offset."""
 
     def __init__(self, width: int, height: int, fx: float, fy: float, cx: float,
-                 cy: float, z_bg: float, z_fg: float, margin_x: int, margin_y: int, bg, fg):
+                 cy: float, z_bg: float, z_fg: float, margin_x: int, margin_y: int, bg, fg,
+                 rays=None):
         want = (height + 2 * margin_y, width + 2 * margin_x)
         if tuple(bg.shape) != want or tuple(fg.shape) != want:
             raise ValueError(f"textures {tuple(bg.shape)}, {tuple(fg.shape)}; want {want}")
@@ -55,14 +63,18 @@ class PlaneScene:
         self.z_bg, self.z_fg = z_bg, z_fg
         self.mx, self.my = margin_x, margin_y
         self.bg, self.fg = bg, fg
+        self.rays = rays
 
     def render(self, rolls, sxs, dzs, batch: int = 32):
         """Frames for per-frame (roll rad, sx, dz) tensors on the device,
         ``batch`` frames per call."""
         dev = self.bg.device
         out = torch.empty((len(rolls), self.h, self.w), dtype=torch.uint8, device=dev)
-        u = (torch.arange(self.w, device=dev, dtype=torch.float32) - self.cx)[None, None, :]
-        v = (torch.arange(self.h, device=dev, dtype=torch.float32) - self.cy)[None, :, None]
+        if self.rays is None:
+            u = (torch.arange(self.w, device=dev, dtype=torch.float32) - self.cx)[None, None, :]
+            v = (torch.arange(self.h, device=dev, dtype=torch.float32) - self.cy)[None, :, None]
+        else:
+            u, v = (r[None] for r in self.rays)
         mx, my = self.mx, self.my
         for lo in range(0, len(rolls), batch):
             th = rolls[lo:lo + batch, None, None]
@@ -83,6 +95,18 @@ class PlaneScene:
                     frame = layer
             out[lo:lo + batch] = torch.round(frame).clamp(0, 255).to(torch.uint8)
         return out
+
+
+def lens_rays(width: int, height: int, fx: float, fy: float, cx: float, cy: float,
+              terms, device):
+    """Each pixel's ideal offset from the principal point, in pixels, behind
+    a lens of (k1, k2, p1, p2): its distorted normalised coordinate inverted
+    in float64 (``reference/lens.undistort``, which raises where the inverse
+    misses by more than 1e-9), then rounded to float32."""
+    u, v = np.meshgrid(np.arange(width, dtype=np.float64), np.arange(height, dtype=np.float64))
+    x, y = lens.undistort((u - cx) / fx, (v - cy) / fy, *terms)
+    return (torch.as_tensor((fx * x).astype(np.float32), device=device),
+            torch.as_tensor((fy * y).astype(np.float32), device=device))
 
 
 def poses(rolls, sxs, dzs):

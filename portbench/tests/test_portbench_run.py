@@ -12,6 +12,8 @@ The cells run on one card, so there is no exchange between chips to leave
 out."""
 
 import math
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -58,6 +60,11 @@ def test_result_line_keys():
     for c in out["checks"].values():
         assert set(c) == {"value", "limit"}
     assert out["correct"], out["checks"]
+    info = out["info"]
+    for key in ("keyframes_inserted", "keyframes_held_at_open", "landmarks_at_open",
+                "frames_per_s_by_quarter", "step_ms_median_insert"):
+        assert key in info, key
+    assert info["keyframes_held_at_open"] >= 1 and info["keyframes_inserted"] >= 1
 
 
 def _unchanged(method):
@@ -120,3 +127,14 @@ def test_live_cell_faults(fault, monkeypatch):
 def test_live_cell_sound():
     out = _run("tum_fr1_vga.live", warmup_frames=24)
     assert out["correct"], out["checks"]
+
+
+def test_command_without_a_card_prints_no_result():
+    """The command exits non-zero and prints no result line where there is
+    no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the command would run the cell")
+    p = subprocess.run([sys.executable, "portbench/run.py", "--workload", "tum_fr1_vga.live",
+                        "--seed", str(SEED), "--seconds", "1"], cwd=harness.ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode != 0 and p.stdout == "" and "no CUDA card" in p.stderr

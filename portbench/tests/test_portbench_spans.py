@@ -83,6 +83,15 @@ def test_reader_without_spans(ctx, name, monkeypatch):
     assert reader.read(ctx) is None                 # a program without spans
 
 
+def test_traced_frames_per_s(ctx):
+    """The traced window's frames over its wall seconds; nothing without
+    a trace or frames."""
+    reader = harness.load_reader("traced_frames_per_s.live")
+    assert reader.read(ctx) == pytest.approx(2 / 0.1)
+    assert reader.read({"trace": FakeTrace()}) is None
+    assert reader.read({"frames": 2}) is None
+
+
 def test_breakdown(ctx):
     out = spans.breakdown(ctx)
     assert out["window_ms_per_frame"] == pytest.approx(50.0)
